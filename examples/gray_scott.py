@@ -74,11 +74,8 @@ def main():
     inputs = sft.load_input_arrays(program)
     feed = {"u": "u1", "v": "v1"}
 
-    import jax
-    interpret = jax.devices()[0].platform == "cpu"
     steps = 400
-    state = sft.iterate(program, inputs, steps=steps, feed=feed, fuse=4,
-                        interpret=interpret)
+    state = sft.iterate(program, inputs, steps=steps, feed=feed, fuse=4)
     u = np.asarray(state["u"])
     v = np.asarray(state["v"])
     # the reaction keeps both concentrations in [0, 1]; the v seed must

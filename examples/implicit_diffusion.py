@@ -4,7 +4,7 @@
 Explicit 2-D diffusion requires ``dt <= dx²/4``; backward Euler
 ``(I - dt·L) x⁺ = x`` is unconditionally stable but needs a solve per
 step.  ``sft.make_solver`` compiles the chain once as a matrix-free CG
-operator (streaming backend, iterations on device) — here one step at
+operator (iterations on device) — here one step at
 40x the explicit limit, where the explicit scheme detonates.
 
 Run with JAX_PLATFORMS=cpu for a hardware-free demo.
@@ -22,8 +22,6 @@ N, DT = 96, 10.0      # dx = 1: explicit limit is dt = 0.25
 
 
 def main():
-    import jax
-
     implicit = sft.parse_program({
         "inputs": {"x": {"data": "constant:0.0", "data_type": "float32"}},
         "outputs": ["y"], "dimensions": [N, N],
@@ -51,8 +49,7 @@ def main():
              + 1e-3 * np.random.default_rng(0).random((N, N))
              ).astype(np.float32)   # noise seeds the unstable modes
 
-    interpret = jax.devices()[0].platform == "cpu"
-    solver = sft.make_solver(implicit, tol=1e-6, interpret=interpret)
+    solver = sft.make_solver(implicit, tol=1e-6)
     s_im = state
     for step in range(5):
         s_im, info = solver(s_im)

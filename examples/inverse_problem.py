@@ -38,13 +38,10 @@ def main():
     observed = jnp.asarray(
         sft.run_interpreter(program, {"a": truth})[out_name])
 
-    # both passes on the streaming backend (sft.value_and_grad is the
-    # general fallback for non-affine programs)
-    import jax
-    interpret = jax.devices()[0].platform == "cpu"
+    # the backward pass is the compiled adjoint chain (sft.value_and_grad
+    # is the general fallback for non-affine programs)
     f = sft.fast_value_and_grad(
-        program, loss=lambda o: ((o[out_name] - observed) ** 2).mean(),
-        interpret=interpret)
+        program, loss=lambda o: ((o[out_name] - observed) ** 2).mean())
 
     opt = optax.adam(0.05)
     a = jnp.zeros((N, N), jnp.float32)

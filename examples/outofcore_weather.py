@@ -10,12 +10,12 @@ and with ``fuse`` > 1 each host<->device sweep advances several steps:
           +--------------------- chunk outputs <----------------------+
 
 At production scale the same script time-steps a 2048 x 4096 x 4096 grid
-(128 GiB per field — 8x a v5e's HBM) by just raising SIZE; `report`
-prints the footprint and the suggested chunk count:
+(128 GiB per field, 384 GiB in all — about 5x an 80 GB H100) by just
+raising SIZE; `report` prints the footprint and the suggested chunk count:
 
     python -m stencilflow_tpu.cli report <program.json>
-    ... HBM footprint 256.0 GiB exceeds the chip (16 GiB):
-        out-of-core advised -> run --host-chunks 16
+    ... HBM footprint 384.0 GiB exceeds the device (75 GiB):
+        out-of-core advised -> run --host-chunks 8
 
 Run (any JAX backend; sized small so CPU emulation finishes quickly):
 
@@ -46,7 +46,7 @@ program = sft.parse_program(
 
 rep = Report.build(program)
 print(f"in-core HBM footprint: {rep.hbm_footprint_bytes() / 2**20:.1f} "
-      f"MiB; suggested host chunks on a v5e: "
+      f"MiB; suggested host chunks on an H100: "
       f"{rep.suggested_host_chunks()}")
 
 with tempfile.TemporaryDirectory() as tmp:

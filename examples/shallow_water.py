@@ -68,10 +68,7 @@ def main():
     inputs = sft.load_input_arrays(program)
     feed = {"h": "h1", "u": "u1", "v": "v1"}
 
-    import jax
-    interpret = jax.devices()[0].platform == "cpu"
-    state = sft.iterate(program, inputs, steps=200, feed=feed, fuse=4,
-                        interpret=interpret)
+    state = sft.iterate(program, inputs, steps=200, feed=feed, fuse=4)
     h = np.asarray(state["h"])
     energy = float((h ** 2).sum() + (np.asarray(state["u"]) ** 2).sum()
                    + (np.asarray(state["v"]) ** 2).sum())

@@ -1,8 +1,7 @@
 #!/usr/bin/env python
 """End-to-end walkthrough of the framework's surfaces.
 
-Run with JAX_PLATFORMS=cpu for a hardware-free demo, or on a TPU host for
-compiled Pallas kernels.
+Run with JAX_PLATFORMS=cpu for a hardware-free demo, or on a GPU host.
 """
 import os
 import sys
@@ -39,16 +38,14 @@ def main():
     print(f"simulated {res.cycles} cycles for {program.total_elements} "
           "elements; buffer bounds held\n")
 
-    # 5. the compiled path (streaming Pallas on TPU, fused XLA elsewhere)
-    import jax
-    interpret = jax.devices()[0].platform == "cpu"
-    fn, backend = compile_chain_best(program, interpret=interpret)
+    # 5. the compiled path: the whole chain as one fused XLA program
+    fn, backend = compile_chain_best(program)
     out = fn(inputs)
     err = np.abs(np.asarray(out[out_name]) -
                  np.asarray(oracle[out_name])).max()
     print(f"backend '{backend}': max abs error vs oracle = {err}\n")
 
-    # 6. memory placement under a VMEM budget
+    # 6. fast/slow memory placement of the stream buffers
     opt = Optimizer(program)
     opt.optimize_to_ratio(1.0)
     print(opt.summary())
@@ -62,16 +59,16 @@ def main():
                                inputs={"a": np.float32}, name="traced_demo")
     print(f"\ntraced program: kernels={list(traced.kernels)}")
 
-    # 8. projected multi-chip scaling (halo exchange over ICI vs compute)
+    # 8. projected multi-device scaling (halo exchange vs compute, at the
+    #    published H100 peaks)
     s = Report.build(program).mesh_scaling({"x": 2, "y": 2})
     print(f"\n2x2 mesh: {s['scaled_gcell_s']:.1f} GCell/s projected, "
           f"efficiency {s['parallel_efficiency']:.2f} "
-          f"(ICI {s['ici_bytes_per_device']/2**10:.0f} KiB/device/step)")
+          f"(exchange {s['link_bytes_per_device']/2**10:.0f} KiB/device/step)")
 
     # 9. time-stepping with temporal fusion (iterate.py; add
     #    checkpoint_every/checkpoint_dir for crash-resumable runs)
-    state = sft.iterate(program, inputs, steps=8, fuse=4,
-                        interpret=interpret)
+    state = sft.iterate(program, inputs, steps=8, fuse=4)
     total = float(np.asarray(state["a"]).sum())
     print(f"iterated 8 steps (fuse=4): state sum={total:.3f}")
 
@@ -88,14 +85,6 @@ def main():
     err = float(np.abs(oc[program.outputs[0]]
                        - np.asarray(oracle[program.outputs[0]])).max())
     print(f"out-of-core 2-chunk sweep: max abs error vs oracle = {err}")
-
-    # 12. measured backend selection: time every applicable lowering on
-    #     the attached device, cache the winner (run --backend autotuned)
-    from stencilflow_tpu.autotune import autotune
-    res = autotune(program, interpret=interpret, trials=1)
-    print(f"autotune winner: {res.label} "
-          f"({res.seconds * 1e3:.2f} ms/run; "
-          f"{len(res.timings)} candidates timed)")
 
 
 if __name__ == "__main__":

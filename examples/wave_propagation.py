@@ -64,17 +64,13 @@ FEED = {"p": "pn", "pm": "pcur"}
 
 
 def main():
-    import jax
-    interpret = jax.devices()[0].platform == "cpu"
-
     program = build_program()
     inputs = sft.load_input_arrays(program)
     p0 = np.asarray(inputs["p"])
 
     # forward T steps (temporal fusion: 4 leapfrog updates per compiled
     # chain — one read + one write of each field per 4 steps)
-    fwd = sft.iterate(program, inputs, steps=T, feed=FEED, fuse=4,
-                      interpret=interpret)
+    fwd = sft.iterate(program, inputs, steps=T, feed=FEED, fuse=4)
     p_T, p_Tm1 = np.asarray(fwd["p"]), np.asarray(fwd["pm"])
     spread = float(np.abs(p_T).max())
     print(f"after {T} forward steps: max|p| = {spread:.4f} "
@@ -82,8 +78,7 @@ def main():
 
     # time reversal: swap the two levels, step T-1 times -> p[0]
     rec = sft.iterate(program, {"p": p_Tm1, "pm": p_T},
-                      steps=T - 1, feed=FEED, fuse=1,
-                      interpret=interpret)
+                      steps=T - 1, feed=FEED, fuse=1)
     p_rec = np.asarray(rec["p"])
 
     err = float(np.abs(p_rec - p0).max())

@@ -1,11 +1,11 @@
-"""stencilflow_tpu — a TPU-native stencil-dataflow framework.
+"""stencilflow_tpu — a stencil-dataflow framework on JAX.
 
-A from-scratch rebuild of the capabilities of spcl/stencilflow (CGO'21) for
-TPUs: the same JSON program dialect and buffer/delay analyses, but lowered to
-JAX/XLA/Pallas instead of FPGA HLS pipelines.  Chained stencil operators are
-fused into single overlapped-tile Pallas kernels (VMEM stage buffers replace
-on-chip FIFOs), verified against a whole-domain interpreter oracle, and scale
-across chips via shard_map domain decomposition with ICI halo exchange.
+A from-scratch rebuild of the capabilities of spcl/stencilflow (CGO'21): the
+same JSON program dialect and buffer/delay analyses, but lowered to JAX/XLA
+instead of FPGA HLS pipelines.  Chained stencil operators are fused into one
+XLA program over halo-widened tiles, verified against a whole-domain
+interpreter oracle, and scaled across devices via shard_map domain
+decomposition with halo exchange.
 
 Facade mirrors the reference package (/root/reference/stencilflow/__init__.py).
 """
@@ -29,9 +29,6 @@ from .grad import (adjoint_program, fast_value_and_grad, grad,
 from .solve import make_solver, solve_cg, solve_cgnr
 from .iterate import compose_iterations, iterate, make_step
 from .outofcore import compile_chunked_chain, run_chunked
-# NB: only the compile entry point — exporting autotune.autotune here
-# would shadow the stencilflow_tpu.autotune MODULE attribute
-from .autotune import compile_chain_autotuned
 from .interpreter import ChainInterpreter, run_interpreter
 from .data import (arrays_are_equal, load_array, load_input_arrays,
                    prune_halo, save_array, save_output_arrays)
@@ -52,7 +49,6 @@ __all__ = [
     "adjoint_program", "fast_value_and_grad", "grad", "value_and_grad",
     "make_solver", "solve_cg", "solve_cgnr",
     "compile_chunked_chain", "run_chunked",
-    "compile_chain_autotuned",
     "ChainInterpreter", "run_interpreter",
     "arrays_are_equal", "load_array", "load_input_arrays", "prune_halo",
     "save_array", "save_output_arrays",

@@ -1,210 +1,20 @@
-"""Execution backends: fused XLA (jit) and fused Pallas TPU kernels.
+"""Execution backend: the chain fused into one XLA program.
 
 The reference's backends are DaCe SDFG expansions per vendor
-(/root/reference/stencilflow/stencil/{intel_fpga,xilinx,cpu}.py); ours are
-lowering strategies over the same typed IR: ``xla`` (whole-domain jit, the
-verification backend and fallback), ``pallas`` (single fused overlapped-tile
-kernel, the performance backend), with multi-chip execution layered in
+(/root/reference/stencilflow/stencil/{intel_fpga,xilinx,cpu}.py); ours is
+one lowering over the same typed IR: ``xla`` (whole-domain jit through the
+widened-tile evaluator), with multi-device execution layered in
 ``stencilflow_tpu.parallel``.
 """
 from .xla import chain_halo, compile_chain, run_chain
 
 
-def _any_mxu_candidate(program, min_footprint: int = 12) -> bool:
-    """Cheap pre-check mirroring plan_linear_stage's gate: is any stage
-    affine with a wide-enough footprint and MXU-compatible BCs?  Lets
-    compile_chain_best skip the stream planner for pure-VPU chains."""
-    from .. import ir
-    from .linear import extract_linear
-    for kspec in program.kernels.values():
-        coeffs = extract_linear(kspec)
-        if coeffs is None:
-            continue
-        if any(bc.kind == ir.BCKind.COPY
-               for bc in kspec.boundary_conditions.values()):
-            continue
-        if sum(1 for key in coeffs if key != ("const",)) >= min_footprint:
-            return True
-    return False
+def compile_chain_best(program, analysis=None):
+    """The lowering for the running platform (``device.lowering``).
+    Returns ``(fn, backend_name)``."""
+    from ..device import device_info, lowering
+    name = lowering(device_info().platform)
+    return compile_chain(program, analysis), name
 
 
-def _try_stacked(program, analysis, interpret):
-    """overlap (shallow) or panel (deep) for an untiled VPU chain, or
-    None when neither fits (caller falls back to the plane streamer)."""
-    # measured policy (RESULTS.md round 2): for SHALLOW chains
-    # (cumulative i-extent <= 2) the overlap backend wins big
-    # (256^3 x2: 58.6 vs panel ~40 GCell/s, 0.73 of the HBM
-    # roofline) and ties at 512^3; at extent 4 panel already
-    # wins back (256^3 x4: 38.3/0.955 vs overlap 35.6/0.888 —
-    # halo recompute grows with depth), so deeper untiled VPU
-    # chains go to gated panel mode (128^3 1.12x, 256^3 1.14x,
-    # 512^3 1.05x of the roofline, hotspot +49%, hdiff +73%).
-    # MXU-eligible, j-tiled, and spilled chains stay on the
-    # plane streamer.
-    try:
-        from .overlap import _chain_needs, compile_chain_overlap
-        needs = _chain_needs(program, analysis)
-        # only i-spanning (ring-backed) inputs gate the shallow policy:
-        # static (j,k) coefficient planes are read whole, outside rings
-        H = max((max(lo, hi) for f, (lo, hi) in needs.items()
-                 if f in program.inputs
-                 and not program.inputs[f].is_scalar
-                 and program.inputs[f].dim_mask[0]), default=0)
-        if H <= 2:
-            return (compile_chain_overlap(program, analysis,
-                                          interpret=interpret),
-                    "overlap")
-    except (ValueError, NotImplementedError):
-        pass
-    try:
-        from .panel import compile_chain_panel
-        return (compile_chain_panel(program, analysis,
-                                    interpret=interpret), "panel")
-    except (ValueError, NotImplementedError):
-        return None
-
-
-def compile_chain_rows(program, interpret: bool = False, panel: int = 0,
-                       backend: str = "auto", mxu: str = "auto",
-                       mxu_precision: str = "split", spill: str = "auto",
-                       gate_frac: float = 0.7,
-                       ring_storage: str = "off",
-                       group: int = 2,
-                       input_windows: str = "ring"):
-    """Row-streaming lowering for 2-D programs: rotate the padded domain
-    ``(1, J, K) -> (J, 1, K)`` (frontend.canonicalize.rotate_2d_to_rows)
-    and stream ROWS through the 3-D backends — the panel lowering stacks
-    B rows per op, so large 2-D planes that would force j-tiling stream
-    untiled instead.  Returns ``(fn, "rows+<backend>")``; raises
-    ValueError when the program is not 2-D (callers fall back).
-    ``mxu``/``mxu_precision``/``spill`` forward to the inner lowering
-    (so ``run --no-mxu --backend rows`` is honored); ``gate_frac``
-    scales the panel VMEM gate (autotune passes 1.0, see panel.py).
-    """
-    import jax
-    import jax.numpy as jnp
-
-    from ..frontend.canonicalize import rotate_2d_to_rows
-    rot = rotate_2d_to_rows(program)
-    if ring_storage != "off" and not (
-            backend in ("stream", "panel", "group")
-            or (backend == "auto" and panel > 0)):
-        raise ValueError(
-            "ring_storage requires the stream or panel rows lowering "
-            "(pass backend='stream'/'panel' or an explicit panel=); "
-            "refusing to silently measure an f32 kernel")
-    if backend == "panel" or (backend == "auto" and panel > 0):
-        from .panel import compile_chain_panel
-        fn, name = (compile_chain_panel(rot, panel=panel,
-                                        interpret=interpret,
-                                        gate_frac=gate_frac,
-                                        ring_storage=ring_storage),
-                    "panel")
-    elif backend == "overlap":
-        from .overlap import compile_chain_overlap
-        fn, name = (compile_chain_overlap(rot, panel=panel,
-                                          interpret=interpret,
-                                          gate_frac=gate_frac), "overlap")
-    elif backend == "group":
-        from .group import compile_chain_group
-        fn, name = (compile_chain_group(rot, panel=panel, group=group,
-                                        interpret=interpret,
-                                        gate_frac=gate_frac,
-                                        ring_storage=ring_storage,
-                                        input_windows=input_windows),
-                    f"group_g{group}")
-    elif backend == "stream":
-        from .stream import compile_chain_stream
-        fn, name = (compile_chain_stream(rot, interpret=interpret,
-                                         mxu=mxu,
-                                         mxu_precision=mxu_precision,
-                                         spill=spill,
-                                         ring_storage=ring_storage),
-                    "stream")
-    else:
-        fn, name = compile_chain_best(rot, interpret=interpret, mxu=mxu,
-                                      mxu_precision=mxu_precision,
-                                      spill=spill)
-    raw = program.raw_dimensions
-
-    def forward(inputs):
-        return {o: jnp.reshape(r, raw) for o, r in fn(inputs).items()}
-
-    return jax.jit(forward), "rows+" + name
-
-
-def compile_chain_best(program, analysis=None, interpret: bool = False,
-                       mxu: str = "auto", mxu_precision: str = "split",
-                       spill: str = "auto"):
-    """Pick the fastest applicable lowering: streaming Pallas (one HBM read +
-    one write per element), then overlapped-tile Pallas, then plain XLA.
-    Returns ``(fn, backend_name)``.  ``mxu``/``mxu_precision``/``spill``
-    forward to the streaming backend.
-    """
-    import jax
-
-    from ..frontend.analysis import ChainAnalysis
-    analysis = analysis or ChainAnalysis.run(program)
-    if interpret or jax.devices()[0].platform == "cpu":
-        # emulation (or CPU host, where compiled Mosaic is unavailable):
-        # the fused-XLA path is fast everywhere and equally correct
-        return compile_chain(program, analysis), "xla"
-    if mxu == "off" or not _any_mxu_candidate(program):
-        # pure-VPU chain: go straight to the stacked backends (their own
-        # VMEM/scope checks reject what needs j-tiling or spill, falling
-        # through to the plane streamer) — no stream planning needed
-        got = _try_stacked(program, analysis, interpret)
-        if got is not None:
-            return got
-    try:
-        from .stream import compile_chain_stream
-        fn = compile_chain_stream(program, analysis,
-                                  interpret=interpret, mxu=mxu,
-                                  mxu_precision=mxu_precision,
-                                  spill=spill)
-        cfg = compile_chain_stream.last_config
-        if (cfg["jtiles"] == 1 and not cfg["mxu_stages"]
-                and not cfg["spilled"]):
-            # an MXU candidate existed but the planner declined it:
-            # the stacked backends still win for untiled VPU chains
-            got = _try_stacked(program, analysis, interpret)
-            if got is not None:
-                return got
-        if (len(program.raw_dimensions) == 2 and cfg["jtiles"] > 1
-                and not cfg["mxu_stages"] and len(program.kernels) >= 4):
-            # deep 2-D forced into j-tiling: row streaming avoids the
-            # j-tile halo inflation entirely, and rows+group g=8 B=64
-            # measured +9% over the j-tiled streamer at the canonical
-            # 8192^2 x8 (16.85 vs 15.44 GCell/s, 3-session protocol —
-            # RESULTS.md round 5).  Try it first; keep the streamer
-            # when the shape refuses (B must divide the row count).
-            try:
-                return compile_chain_rows(program, interpret=interpret,
-                                          backend="group", group=8,
-                                          panel=64)
-            except (ValueError, NotImplementedError):
-                pass
-        return fn, "stream"
-    except (ValueError, NotImplementedError):
-        pass
-    if len(program.raw_dimensions) == 2:
-        # 2-D rescue: when no plane-streamer configuration fits (plane too
-        # wide for any j-tile / spill), rotate to row streaming before
-        # falling to the tile/XLA paths.  (Deep j-tiled chains already
-        # took rows+group above, r5; this rescue keeps shallow/odd 2-D
-        # shapes on the streamer-first order the r3/r4 A/Bs validated.)
-        try:
-            return compile_chain_rows(program, interpret=interpret)
-        except (ValueError, NotImplementedError):
-            pass
-    try:
-        from .pallas import compile_chain_pallas
-        return (compile_chain_pallas(program, analysis,
-                                     interpret=interpret), "pallas")
-    except Exception:  # noqa: BLE001 — pallas lowering limits
-        pass
-    return compile_chain(program, analysis), "xla"
-
-
-__all__ = ["chain_halo", "compile_chain", "run_chain", "compile_chain_best",
-           "compile_chain_rows"]
+__all__ = ["chain_halo", "compile_chain", "run_chain", "compile_chain_best"]

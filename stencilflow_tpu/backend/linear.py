@@ -1,37 +1,18 @@
-"""Linear-stencil extraction and banded-matmul (MXU) lowering.
+"""Affine-stencil extraction.
 
 A stage whose expression is an affine combination of field accesses,
 
     out[x] = bias + sum_f sum_o  c_{f,o} * f[x + o],
 
-can be computed per (j, k)-plane on the MXU instead of the VPU: group the
-coefficients by i-offset into small (2rj+1)x(2rk+1) matrices ``C``, factor
-each as ``C = sum_m u_m v_m^T`` (SVD of a tiny matrix, at compile time), and
-apply each rank term as a pair of *banded* matmuls
-
-    term_m = L(u_m) @ P @ R(v_m),   L[j, j+oj] = u_m[oj], R[k+ok, k] = v_m[ok]
-
-— O(J^2 K + J K^2) MXU flops replacing O(|footprint| * J * K) VPU ops, a
-large win for wide footprints (box/Gaussian stencils), with band truncation
-at the matrix edges implementing zero boundaries exactly and a static
-correction plane lifting them to arbitrary constant-BC values.
-
-This is compile-time analysis (numpy); the streaming kernel consumes the
-resulting plan (stream.py).  Fields with copy BCs fall back to the generic
-VPU path; shrink-BC halo cells are computed as constant-0 (their junk cells
-are pruned by -halo verification anyway, README.md:50-56).
+has a coefficient map ``{(field, offsets): c, ("const",): bias}``.  The
+adjoint builder (grad.py) transposes chains of such stages, and the Krylov
+solvers (solve.py) use it to check that a chain is a linear operator.
 """
 from __future__ import annotations
 
-import dataclasses
-import hashlib
-from typing import Dict, List, Optional, Tuple
-
-import numpy as np
+from typing import Dict, Optional
 
 from .. import ir
-
-Offset2 = Tuple[int, int]
 
 
 class NotLinear(Exception):
@@ -88,35 +69,6 @@ def _linear_expr(expr: ir.Expr, env: Dict[str, Dict]) -> Dict:
     raise NotLinear(f"non-affine node {type(expr).__name__}")
 
 
-@dataclasses.dataclass
-class BandTerm:
-    """One rank term of one i-offset group: L @ P @ R (either side may be
-    identity, signaled by a None matrix key)."""
-    left_key: Optional[str]     # key into the shared matrix pool (J x J)
-    right_key: Optional[str]    # (K x K)
-    scale: float                # scalar factor applied to EVERY term (for
-    #                             one-sided terms it carries _normalize's
-    #                             magnitude — load-bearing, see stream.py)
-
-
-@dataclasses.dataclass
-class PlaneGroup:
-    """All contributions of one field at one i-offset."""
-    field: str
-    oi: Optional[int]
-    terms: List[BandTerm]
-    weight_sum: float            # sum of coefficients (i-OOB constant value)
-    bc_value: float              # constant BC value (JUNK for shrink)
-    correction_key: Optional[str]  # static j/k constant-BC correction plane
-
-
-@dataclasses.dataclass
-class LinearStagePlan:
-    groups: List[PlaneGroup]
-    bias: float
-    footprint: int                  # total weighted accesses (for gating)
-
-
 def extract_linear(kspec: ir.KernelSpec) -> Optional[Dict]:
     """Affine coefficient map of a kernel, or None if not affine."""
     env: Dict[str, Dict] = {}
@@ -126,447 +78,3 @@ def extract_linear(kspec: ir.KernelSpec) -> Optional[Dict]:
     except NotLinear:
         return None
     return env[kspec.output_statement.lhs]
-
-
-class MatrixPool:
-    """Deduplicated static matrices/planes shipped to the kernel as inputs.
-
-    ``meta[key]`` holds the static source-window starts of *blocked* banded
-    matrices (see ``_blocked_rows``); plain matrices have no meta entry.
-    """
-
-    def __init__(self):
-        self.items: Dict[str, np.ndarray] = {}
-        self.meta: Dict[str, Tuple[int, ...]] = {}
-
-    def add(self, arr: np.ndarray, prefix: str,
-            meta: Optional[Tuple[int, ...]] = None) -> str:
-        # content digest, NOT Python's salted hash(): keys must be
-        # deterministic across processes (multi-host tracing sorts them
-        # into the kernel argument order) and collision-free in practice
-        digest = hashlib.sha256(arr.tobytes()).hexdigest()[:16]
-        key = f"{prefix}_{digest}_{'x'.join(map(str, arr.shape))}"
-        self.items.setdefault(key, arr)
-        if meta is not None:
-            self.meta.setdefault(key, meta)
-        return key
-
-
-def finalize_pool(plans: Dict[str, "LinearStagePlan"], pool: "MatrixPool",
-                  program, mxu_precision: str = "split"):
-    """(pool_keys, pool_arrays, pool_meta, transform_keys) for a set of
-    stage plans: prune the pool to referenced matrices, order
-    deterministically, collect the (field, L, R) derived-transform-ring
-    keys, and — in split precision — decompose band matrices into bf16
-    hi (+ ``<key>__lo`` residual) pairs (correction planes stay f32).
-
-    ``mxu_precision="bf16"`` is the opt-in single-pass mode: band
-    matrices round to bf16 with NO residual, and the kernel rounds the
-    operand plane to bf16 too (one MXU pass per matmul instead of 2-3,
-    signalled by the ``"__precision__"`` sentinel in the returned meta
-    dict — matrix keys all start with L/R/corr so it cannot collide).
-    Accuracy drops from ~1e-7 to bf16-level (~1e-2 relative on deep
-    chains); never selected automatically."""
-    if mxu_precision not in ("split", "bf16", "exact"):
-        raise ValueError(f"unknown mxu_precision {mxu_precision!r} "
-                         "(expected split, bf16, or exact)")
-    used = set()
-    tkeys = set()
-    for mp in plans.values():
-        if not hasattr(mp, "groups"):     # ComposedPlan (backend/compose.py)
-            used.update(k for k in (mp.lkey, mp.rkey, mp.table_key) if k)
-            if mp.lkey or mp.rkey:
-                ringed = (mp.field in program.kernels or
-                          (mp.field in program.inputs and
-                           program.inputs[mp.field].dim_mask[0]))
-                if ringed:
-                    tkeys.add((mp.field, mp.lkey, mp.rkey))
-            continue
-        for grp in mp.groups:
-            if grp.correction_key:
-                used.add(grp.correction_key)
-            for t in grp.terms:
-                used.update(k for k in (t.left_key, t.right_key) if k)
-                ringed = (grp.field in program.kernels or
-                          (grp.field in program.inputs and
-                           program.inputs[grp.field].dim_mask[0]))
-                if (t.left_key or t.right_key) and ringed:
-                    tkeys.add((grp.field, t.left_key, t.right_key))
-    pkeys = sorted(used)
-    parrs = [pool.items[k] for k in pkeys]
-    pmeta = {k: pool.meta[k] for k in pkeys if k in pool.meta}
-    if mxu_precision in ("split", "bf16"):
-        import ml_dtypes
-        keys2, arrays2 = [], []
-        for k, a in zip(pkeys, parrs):
-            if k.startswith(("L", "R")):
-                hi = a.astype(ml_dtypes.bfloat16)
-                lo = a - hi.astype(np.float32)
-                keys2.append(k)
-                arrays2.append(hi)
-                if mxu_precision == "split" and np.any(lo):
-                    keys2.append(k + "__lo")
-                    arrays2.append(lo.astype(ml_dtypes.bfloat16))
-            else:
-                keys2.append(k)
-                arrays2.append(a)
-        pkeys, parrs = keys2, arrays2
-        if mxu_precision == "bf16":
-            pmeta = dict(pmeta)
-            pmeta["__precision__"] = "bf16"
-    tkeys = sorted(tkeys, key=lambda t: (t[0], t[1] or "", t[2] or ""))
-    return pkeys, parrs, pmeta, tkeys
-
-
-def plan_all_stages(program, plane, dims, pool: "MatrixPool",
-                    min_footprint: int,
-                    j_contexts=None, k_contexts=None,
-                    exclude=()
-                    ) -> Dict[str, "LinearStagePlan"]:
-    """MXU plans for every eligible stage of a program (shared by the
-    single-chip, sharded, and pipeline-segment compilers).
-
-    Stages touching data wider than f32 stay on the VPU: the banded
-    transforms compute in f32 (bf16-split or f32 passes), which would
-    silently degrade f64 programs below their expected precision."""
-    from ..dtypes import is_floating
-    plans: Dict[str, LinearStagePlan] = {}
-    for kname, kspec in program.kernels.items():
-        if kname in exclude:
-            # composed segments get their exact plan from plan_composed;
-            # the naive (interior-only) IR must never be SVD-planned
-            continue
-        # f32-and-narrower FLOATING data only: f64 would silently lose
-        # precision in the f32 transforms, and integer kernels need exact
-        # wraparound arithmetic the matmul path cannot provide
-        if np.dtype(kspec.dtype).itemsize > 4 or any(
-                np.dtype(program.field_dtype(f)).itemsize > 4
-                for f in kspec.accesses()):
-            continue
-        if not is_floating(kspec.dtype) or any(
-                not is_floating(program.field_dtype(f))
-                for f in kspec.accesses()):
-            continue
-        mp = plan_linear_stage(kspec, plane, dims, pool,
-                               min_footprint=min_footprint,
-                               j_contexts=j_contexts,
-                               k_contexts=k_contexts)
-        if mp is not None:
-            plans[kname] = mp
-    return plans
-
-
-def assets_extra_vmem(plan, transform_keys, pool_keys, pool_arrays) -> int:
-    """Resident VMEM bytes of MXU assets for one stream plan: derived f32
-    transform rings plus band matrices (stacked entries are resident one
-    slice at a time).  ``pool_arrays`` must be the per-device arrays (the
-    sharded compiler accounts its mesh-stacked layouts itself)."""
-    pj, pk = plan.plane
-    extra = sum(plan.ring[f] * pj * pk * 4
-                for (f, _l, _r) in transform_keys)
-    extra += sum(a.nbytes // (a.shape[0] if is_stacked_key(k) else 1)
-                 for k, a in zip(pool_keys, pool_arrays))
-    return extra
-
-
-def mxu_flops_per_cell(plane, pool_keys, pool_arrays, transform_keys,
-                       mxu_precision: str = "split") -> float:
-    """EXECUTED MXU flops per domain cell of one streaming evaluation —
-    the banded-matmul ceiling model (VERDICT r2 next #5; the reference's
-    peak-performance role, /root/reference/bin/report.py:42-43).
-
-    Each unique ``(field, L, R)`` transform is computed ONCE per source
-    plane (cached in a transform ring) as up to two matmul applications:
-    ``L @ P`` costs ``2 * contraction`` flops per plane cell where the
-    contraction length is the full plane extent for a plain banded
-    matrix or the blocked window width Twin for a blocked one
-    (``_blocked_rows``); split precision multiplies by the number of
-    bf16 passes (2, +1 when a ``__lo`` residual matrix exists); "exact"
-    (Precision.HIGHEST) costs 6 bf16-rate passes."""
-    pj, pk = plane
-    arr = dict(zip(pool_keys, pool_arrays))
-
-    def side_flops(key, full_n):
-        if key is None:
-            return 0.0
-        a = arr.get(key)
-        if a is None:
-            return 2.0 * full_n
-        shp = a.shape
-        if key.startswith(("Lb", "Rb")):
-            contraction = shp[-1] if key.startswith("Lb") else shp[-2]
-        else:
-            contraction = shp[-1]
-        # MXU contraction granularity is 128 lanes: a narrower blocked
-        # window still costs a full 128-chunk (CLAUDE.md / RESULTS.md
-        # blocked-banded deployment rule)
-        contraction = -(-contraction // 128) * 128
-        if mxu_precision == "exact":
-            passes = 6
-        elif mxu_precision == "bf16":
-            passes = 1
-        else:
-            passes = 2 + (1 if key + "__lo" in arr else 0)
-        return passes * 2.0 * contraction
-
-    total = 0.0
-    for _field, lkey, rkey in transform_keys:
-        total += side_flops(lkey, pj) + side_flops(rkey, pk)
-    return total
-
-
-def is_stacked_key(key: str) -> bool:
-    """True for pool entries holding one slice per tile/shard instance
-    (leading dim selected by BlockSpec index map or sharding)."""
-    return key.startswith(("Ls_", "Rs_", "corrs_"))
-
-
-BLOCK_T = 128          # output rows/cols per blocked-banded matmul block
-_BLOCK_ALIGN = 8       # source-window start alignment (sublane granularity)
-
-
-def _blocked_rows(full: np.ndarray, T: int = BLOCK_T):
-    """Blocked form of a banded matrix: row blocks x their nonzero windows.
-
-    Returns ``(blocks, starts)`` with ``blocks[t] = full[tT:(t+1)T,
-    s_t:s_t+Twin]`` such that ``(full @ P)[tT:(t+1)T] = blocks[t] @
-    P[s_t:s_t+Twin]`` exactly, or None when blocking brings no flop saving
-    (small matrix, indivisible size, or band too wide).  Replaces the
-    O(n^2 k) full-banded matmul with O(n Twin k) — the rectangular-matmul
-    optimization for wide planes.
-    """
-    n = full.shape[0]
-    if n % T or n < 2 * T:
-        return None
-    spans = []
-    for t in range(n // T):
-        nz = np.nonzero(np.any(full[t * T:(t + 1) * T] != 0, axis=0))[0]
-        if len(nz) == 0:
-            spans.append((t * T, t * T + 1))
-        else:
-            spans.append((int(nz[0]), int(nz[-1]) + 1))
-    starts = [(a // _BLOCK_ALIGN) * _BLOCK_ALIGN for a, _b in spans]
-    twin = max(b - s for (_a, b), s in zip(spans, starts))
-    twin = -(-twin // _BLOCK_ALIGN) * _BLOCK_ALIGN
-    if twin > (3 * n) // 4:   # band too wide vs the plane: keep full
-        return None
-    # MXU contraction granularity is 128 lanes: blocking only cuts real
-    # flops when the window spans fewer 128-chunks than the plane.  At
-    # n=256 a radius-2 window (twin ~136) still fills 2 chunks == the
-    # full plane — measured neutral on chip (RESULTS.md), so keep the
-    # simpler full matmul there and block only from n >= 384.
-    if -(-twin // 128) >= -(-n // 128):
-        return None
-    starts = [max(0, min(s, n - twin)) for s in starts]
-    blocks = np.stack([full[t * T:(t + 1) * T, s:s + twin]
-                       for t, s in enumerate(starts)])
-    return blocks, tuple(starts)
-
-
-def _pool_band(pool: MatrixPool, full: np.ndarray, side: str) -> str:
-    """Add a banded transform matrix to the pool, blocked when profitable.
-
-    ``side`` "L": full is (n, n), applied as ``full @ P`` — blocked over
-    output rows.  "R": full is the (n, n) right matrix already transposed
-    for ``P @ full`` — blocked over output columns, i.e. row blocks of
-    ``full.T`` transposed back, so ``blocks[t]`` is (Twin, T) and
-    ``(P @ full)[:, tT:(t+1)T] = P[:, s_t:s_t+Twin] @ blocks[t]``.
-    """
-    if side == "L":
-        blocked = _blocked_rows(full)
-        if blocked is None:
-            return pool.add(full, "L")
-        blocks, starts = blocked
-        return pool.add(blocks, "Lb", meta=starts)
-    blocked = _blocked_rows(full.T)
-    if blocked is None:
-        return pool.add(full, "R")
-    blocks, starts = blocked
-    return pool.add(np.ascontiguousarray(blocks.transpose(0, 2, 1)),
-                    "Rb", meta=starts)
-
-
-def _normalize(w):
-    """Scale a weight vector so its largest-|.| entry is 1 — identical
-    *patterns* then share one pooled matrix (and one cached transformed
-    plane) across i-offset groups and stages."""
-    a = w[int(np.argmax(np.abs(w)))]
-    return (w / a, float(a)) if a != 0 else (w, 1.0)
-
-
-def _band_matrix(n: int, offsets: List[int], weights: List[float],
-                 g0: Optional[int] = None, N: Optional[int] = None
-                 ) -> np.ndarray:
-    """Banded matrix M with M[p, p+o] = w_o (truncated at the window edges —
-    exactly the zero-boundary contribution when the window IS the domain).
-
-    With ``g0``/``N``, row p corresponds to global coordinate ``g0 + p`` of
-    a domain of size ``N`` (a halo-widened tile/shard plane): entries whose
-    source global coordinate leaves [0, N) are zeroed — the origin-aware
-    band truncation for tiled/sharded planes.  ``g0=None`` keeps every
-    in-window entry (an interior tile, where the exchanged halo provides
-    all band sources).
-    """
-    m = np.zeros((n, n), np.float32)
-    for o, wt in zip(offsets, weights):
-        idx = np.arange(max(0, -o), min(n, n - o))
-        if g0 is not None:
-            g = g0 + idx + o
-            idx = idx[(g >= 0) & (g < N)]
-        m[idx, idx + o] = wt
-    return m
-
-
-def plan_linear_stage(kspec: ir.KernelSpec,
-                      plane: Tuple[int, int],
-                      dims: Tuple[int, int, int],
-                      pool: MatrixPool,
-                      min_footprint: int = 9,
-                      max_rank: int = 2,
-                      j_contexts: Optional[List[Optional[int]]] = None,
-                      k_contexts: Optional[List[Optional[int]]] = None
-                      ) -> Optional[LinearStagePlan]:
-    """Build the MXU plan for one stage, or None if ineligible.
-
-    Eligibility: affine expression; every accessed array field has a
-    constant or shrink BC; footprint at least ``min_footprint``; every
-    i-offset group factors with rank <= ``max_rank``.
-
-    ``j_contexts``/``k_contexts``: for tiled/sharded planes, the GLOBAL
-    coordinate of the widened plane's row/col 0 for every tile/shard
-    instance along that dim (None entry = interior instance, no global
-    band edge).  Matrices and correction planes are then built
-    origin-aware and pooled stacked — L over j instances, R over k
-    instances, corrections over their cross product (j-major), collapsed
-    back to a single matrix when every instance agrees; the kernel
-    selects its instance's slice via BlockSpec index maps or sharded
-    inputs.  With both None (plane == global domain) matrices are
-    unstacked and may use the blocked-banded representation.
-    """
-    coeffs = extract_linear(kspec)
-    if coeffs is None:
-        return None
-    bias = 0.0
-    by_field_oi: Dict[Tuple[str, Optional[int]], Dict[Offset2, float]] = {}
-    for key, c in coeffs.items():
-        if key == ("const",):
-            bias += c
-            continue
-        field, offsets = key
-        bc = kspec.boundary_conditions.get(field)
-        if bc is not None and bc.kind == ir.BCKind.COPY:
-            return None    # copy BC: generic path
-        oi, oj, ok = offsets
-        by_field_oi.setdefault((field, oi), {})[(oj or 0, ok or 0)] = \
-            by_field_oi.get((field, oi), {}).get((oj or 0, ok or 0),
-                                                 0.0) + c
-    footprint = sum(len(v) for v in by_field_oi.values())
-    if footprint < min_footprint:
-        return None
-
-    pj, pk = plane
-    J, K = dims[1], dims[2]
-
-    tiled = j_contexts is not None or k_contexts is not None
-    if tiled:
-        j_contexts = j_contexts if j_contexts is not None else [None]
-        k_contexts = k_contexts if k_contexts is not None else [None]
-
-    def add_band(n, offs, wts, side):
-        """Pool one band matrix (or a per-instance stack of them)."""
-        if not tiled:
-            full = _band_matrix(n, offs, wts)
-            if side == "R":
-                full = np.ascontiguousarray(full.T)
-            return _pool_band(pool, full, side)
-        ndom = J if side == "L" else K
-        slices = []
-        for g0 in (j_contexts if side == "L" else k_contexts):
-            m = _band_matrix(n, offs, wts, g0=g0,
-                             N=ndom if g0 is not None else None)
-            slices.append(np.ascontiguousarray(m.T) if side == "R" else m)
-        if all(np.array_equal(slices[0], s) for s in slices[1:]):
-            return _pool_band(pool, slices[0], side)
-        return pool.add(np.stack(slices), side + "s")
-
-    groups: List[PlaneGroup] = []
-    for (field, oi), cmap in by_field_oi.items():
-        ojs = sorted({o[0] for o in cmap})
-        oks = sorted({o[1] for o in cmap})
-        C = np.zeros((len(ojs), len(oks)), np.float64)
-        for (oj, ok), c in cmap.items():
-            C[ojs.index(oj), oks.index(ok)] = c
-        terms: List[BandTerm] = []
-        if not np.any(C):
-            continue   # fully cancelled coefficients: zero contribution
-            #            (checked FIRST: a cancelled single-row group must
-            #            not pool a zero band matrix and matmul per plane)
-        if C.shape == (1, 1) and ojs == [0] and oks == [0]:
-            terms.append(BandTerm(None, None, float(C[0, 0])))
-        elif len(ojs) == 1 and ojs == [0]:
-            nv, b = _normalize(C[0])
-            terms.append(BandTerm(None, add_band(pk, oks, list(nv), "R"),
-                                  b))
-        elif len(oks) == 1 and oks == [0]:
-            nu, a = _normalize(C[:, 0])
-            terms.append(BandTerm(add_band(pj, ojs, list(nu), "L"), None,
-                                  a))
-        else:
-            u, sv, vt = np.linalg.svd(C)
-            rank = int((sv > 1e-10 * max(1.0, sv[0])).sum())
-            if rank > max_rank:
-                return None
-            if rank == 0:
-                continue   # numerically zero group
-            for m in range(rank):
-                nu, a = _normalize(u[:, m])
-                nv, b = _normalize(vt[m])
-                terms.append(BandTerm(add_band(pj, ojs, list(nu), "L"),
-                                      add_band(pk, oks, list(nv), "R"),
-                                      float(sv[m] * a * b)))
-        wsum = float(sum(cmap.values()))
-
-        # constant-BC correction: j/k-OOB cells contribute bc.value, not 0
-        # (per group, so i-OOB replacement composes correctly)
-        from ..config import JUNK_VAL
-        bc = kspec.boundary_conditions.get(field)
-        if bc is not None and bc.kind == ir.BCKind.SHRINK:
-            bval = JUNK_VAL   # only affects halo cells (pruned)
-        else:
-            bval = float(bc.value) if bc is not None else 0.0
-        corr_key = None
-        if bval != 0.0:
-            def corr_for(g0j, g0k):
-                jj = (np.arange(pj) +
-                      (g0j if g0j is not None else 0))[:, None]
-                kk = (np.arange(pk) +
-                      (g0k if g0k is not None else 0))[None, :]
-                correction = np.zeros((pj, pk), np.float32)
-                for (oj, ok), c in cmap.items():
-                    oob = np.zeros((pj, pk), bool)
-                    if g0j is not None:
-                        oob |= (jj + oj < 0) | (jj + oj >= J)
-                    if g0k is not None:
-                        oob |= (kk + ok < 0) | (kk + ok >= K)
-                    correction += np.float32(bval * c) * oob
-                return correction
-            if not tiled:
-                correction = corr_for(0, 0)
-                if np.any(correction):
-                    corr_key = pool.add(correction, "corr")
-            else:
-                # cross product, j-major: instance (ji, ki) at ji*nk + ki
-                stack = np.stack([corr_for(a, b)
-                                  for a in j_contexts for b in k_contexts])
-                if np.any(stack):
-                    if all(np.array_equal(stack[0], s) for s in stack[1:]):
-                        corr_key = pool.add(stack[0], "corr")
-                    else:
-                        corr_key = pool.add(stack, "corrs")
-        groups.append(PlaneGroup(field, oi, terms, wsum, bval, corr_key))
-
-    if not groups:
-        # every coefficient group cancelled: a constant stage — let the
-        # VPU path emit it (mxu_eval has no matmul to anchor the bias on)
-        return None
-    return LinearStagePlan(groups=groups, bias=bias, footprint=footprint)

@@ -1,8 +1,8 @@
 """Shared halo-tile evaluator: runs a whole stencil chain on one widened tile.
 
-This is the TPU-native replacement for the reference's streaming pipeline
-semantics (/root/reference/stencilflow/stencil/intel_fpga.py:107-543): instead
-of skewing element streams in *time* through line buffers and delay FIFOs, we
+The replacement for the reference's streaming pipeline semantics
+(/root/reference/stencilflow/stencil/intel_fpga.py:107-543): instead of
+skewing element streams in *time* through line buffers and delay FIFOs, we
 widen tiles in *space* by the chain's cumulative halo and evaluate every
 kernel over the whole widened tile.  Out-of-tile reads use circular rolls
 whose wrapped values only ever land in the tile's invalid margin (which
@@ -10,15 +10,14 @@ shrinks by each stage's radius and never reaches the core, by construction of
 the halo budget), and out-of-*domain* reads are fixed up with
 boundary-condition masks over global coordinates.
 
-The same function body serves three consumers:
+The same function body serves every execution path:
 
-* the fused Pallas kernel (one tile per grid step, VMEM-resident stages),
+* the single-tile XLA backend (the whole padded domain as one "tile"),
 * the shard_map domain-decomposition path (one tile per device, halos
-  exchanged over ICI), and
-* the single-tile XLA backend (the whole padded domain as one "tile").
+  exchanged with ``ppermute``),
+* the pipeline-split segments and the out-of-core chunk bodies.
 
-Everything here is shape-static, data-independent control flow — jit/pallas
-safe.
+Everything here is shape-static, data-independent control flow — jit safe.
 """
 from __future__ import annotations
 
@@ -45,31 +44,24 @@ def _roll(arr, shift: int, axis: int):
 
 def _global_oob_mask(offsets: ir.Offsets, tile_shape: Sequence[int],
                      origin: Sequence[Any], halo: Vec3,
-                     dimensions: Vec3, cache: Optional[dict] = None,
-                     assume_dims: Sequence[int] = ()):
+                     dimensions: Vec3, cache: Optional[dict] = None):
     """Mask of widened-tile positions whose shifted read leaves the domain.
 
     Global coordinate of widened-tile cell x in dim d is
     ``origin[d] + x_d - halo[d]``; the read targets global + offset.
-    ``origin`` entries may be traced scalars (pallas program_id, shard
-    offsets).  Matches the reference's OOB rule (stencil/cpu.py:71-78).
+    ``origin`` entries may be traced scalars (shard or chunk offsets).
+    Matches the reference's OOB rule (stencil/cpu.py:71-78).
 
     Masks depend only on (offsets, tile_shape), which deep chains repeat
     every stage — ``cache`` memoizes them within one tile evaluation.
-
-    ``assume_dims``: dims the caller PROVES in-bounds for every position
-    (the streaming kernel's interior-tile split guards these reads with
-    a predicate that makes the dim's mask term all-false), so the term
-    is dropped at trace time — on interior j-tiles / shard blocks that
-    elides the whole iota+compare+select chain.
     """
-    key = (tuple(offsets), tuple(tile_shape), tuple(assume_dims))
+    key = (tuple(offsets), tuple(tile_shape))
     if cache is not None and key in cache:
         return cache[key]
     mask = None
     for d, o in enumerate(offsets):
-        if o is None or d in assume_dims:
-            continue  # unspanned / proven-in-bounds dim
+        if o is None:
+            continue  # unspanned dim
         if (o == 0 and isinstance(origin[d], (int, np.integer))
                 and origin[d] - halo[d] == 0
                 and tile_shape[d] == dimensions[d]):
@@ -89,32 +81,23 @@ def _global_oob_mask(offsets: ir.Offsets, tile_shape: Sequence[int],
 def read_access_tile(buf, offsets: ir.Offsets,
                      bc: Optional[ir.BoundaryCondition],
                      origin: Sequence[Any], halo: Vec3, dimensions: Vec3,
-                     cache: Optional[dict] = None, center=None,
-                     assume_dims: Sequence[int] = ()):
-    """Materialize ``field[x + o]`` over a widened tile with its BC applied.
-
-    ``center`` overrides the copy-BC center value (the streaming kernel
-    passes the evaluation-point plane when ``buf`` is already an i-shifted
-    plane; by default the unshifted ``buf`` IS the center).
-
-    ``assume_dims`` forwards to ``_global_oob_mask`` (interior-tile
-    split: proven-in-bounds dims skip their mask term).
-    """
+                     cache: Optional[dict] = None):
+    """Materialize ``field[x + o]`` over a widened tile with its BC applied
+    (a copy BC reads the unshifted ``buf``, the evaluation point)."""
     shifted = buf
     for d, o in enumerate(offsets):
         if o is None or o == 0:
             continue
         shifted = _roll(shifted, o, d)
     mask = _global_oob_mask(offsets, buf.shape, origin, halo, dimensions,
-                            cache, assume_dims=assume_dims)
+                            cache)
     if mask is None:
         return shifted
     if bc is None or bc.kind == ir.BCKind.CONSTANT:
         fill = jnp.asarray(bc.value if bc is not None else 0.0, buf.dtype)
         return jnp.where(mask, fill, shifted)
     if bc.kind == ir.BCKind.COPY:
-        return jnp.where(mask, center if center is not None else buf,
-                         shifted)
+        return jnp.where(mask, buf, shifted)
     if bc.kind == ir.BCKind.SHRINK:
         return jnp.where(mask, jnp.asarray(JUNK_VAL, buf.dtype), shifted)
     raise ValueError(f"unknown boundary condition {bc!r}")
@@ -144,64 +127,14 @@ _CALLS: Dict[str, Callable] = {
 }
 
 
-def reject_unsupported_mosaic(program: ir.Program,
-                              interpret: bool,
-                              bool_ihistory_ok: bool = False) -> None:
-    """Scope gate shared by the Pallas lowerings (overlap/pallas):
-    a BOOL field read at a nonzero i-offset needs an i1 ring/stack with
-    history ROLLS, which crashes the Mosaic compiler outright (measured
-    on v5e: tpu_compile_helper exit 1; re-typing the ring alone does not
-    help — shifting the i1 VECTOR is the crash).  Raise a clean
-    ValueError so compile_chain_best falls through, which lands such
-    programs on the stream/panel/group lowerings
-    (``bool_ihistory_ok=True``: they keep bool history as 0/1 int32
-    through their slice/roll/mask machinery and convert with ``!= 0``
-    at read exit — VERDICT r4 #5) or, failing those, on fused XLA.
-    Same-plane bool reads are fine everywhere."""
-    if interpret:
-        return
-    # Narrow-int (i8/i16) kernels at sublane-unaligned plane widths
-    # crash Mosaic's packed-vreg layout handling erratically (measured
-    # on v5e: an int16 kernel at dims (6,7,6) with B=2 panels dies in
-    # tpu_compile_helper while near-identical shapes compile; the exact
-    # trigger resists pinning).  Gate the whole class at J % 8 != 0 —
-    # aligned narrow-int programs stay on the fast path, odd-shaped
-    # ones take fused XLA (verified correct on chip).
-    if program.dimensions[1] % 8:
-        for fname, dt in (
-                [(k, s.dtype) for k, s in program.kernels.items()]
-                + [(n, s.dtype) for n, s in program.inputs.items()]):
-            d = np.dtype(dt)
-            if d.kind in "iu" and d.itemsize < 4:
-                raise ValueError(
-                    f"field {fname!r} is {d.name} on a sublane-"
-                    f"unaligned plane (J={program.dimensions[1]}): "
-                    "narrow-int packed layouts crash the Mosaic "
-                    "compiler at such shapes (use the fused-XLA "
-                    "backend)")
-    if bool_ihistory_ok:
-        return
-    for kname, kspec in program.kernels.items():
-        for field, offsets in kspec.accesses().items():
-            if np.dtype(program.field_dtype(field)).kind != "b":
-                continue
-            for offs in offsets:
-                if offs and offs[0] not in (0, None):
-                    raise ValueError(
-                        f"kernel {kname!r} reads bool field {field!r} at "
-                        f"i-offset {offs[0]}: bool rings with i-history "
-                        "are unsupported by the Mosaic compiler (use the "
-                        "fused-XLA backend)")
-
-
 def const_dtype_of(kspec: ir.KernelSpec):
     """Pin dtype for a kernel's float constants: the kernel dtype when it
     is floating, else float32.  Matches the oracle's pinning
     (interpreter.py eval_kernel): a weak jnp const DEMOTES against a
     narrower neighbor (weak f32 + bf16 -> bf16 in JAX's lattice, where
     numpy computes f32), and in non-floating kernels an unpinned numpy
-    const would materialize strong float64 — which TPU compute cannot
-    express — so f32 is the defined semantics there."""
+    const would materialize strong float64 — which the JAX engines do not
+    compute with x64 off — so f32 is the defined semantics there."""
     dt = np.dtype(kspec.dtype)
     return dt if is_floating(dt) else np.dtype(np.float32)
 
@@ -221,9 +154,7 @@ def _eval_expr(expr: ir.Expr, fields: Dict[str, Any], env: Dict[str, Any],
 
 def last_use_map(program: ir.Program, order, keep) -> Dict[str, int]:
     """Death schedule: field -> index of its last consuming kernel in
-    ``order`` (``keep`` names pinned past the end).  Shared by the tile
-    evaluators and the pallas tile planner so liveness semantics cannot
-    drift between the planner and the executors."""
+    ``order`` (``keep`` names pinned past the end)."""
     last_use: Dict[str, int] = {}
     for idx, kname in enumerate(order):
         for f in program.kernels[kname].accesses():
@@ -238,9 +169,8 @@ def eval_expr_generic(expr: ir.Expr, env: Dict[str, Any], read_fn,
     """Expression walker parameterized by the field-read strategy.
 
     ``read_fn(field, offsets)`` materializes an Access; Refs resolve through
-    ``env``.  Shared by the streaming Pallas kernel and other lowerings that
-    bring their own buffer model.  ``const_dtype`` pins float constants to
-    the kernel dtype (strong numpy scalar — see const_dtype_of).
+    ``env``.  ``const_dtype`` pins float constants to the kernel dtype
+    (strong numpy scalar — see const_dtype_of).
     """
     if isinstance(expr, ir.Const):
         if const_dtype is not None and isinstance(expr.value, float):
@@ -284,16 +214,6 @@ def eval_expr_generic(expr: ir.Expr, env: Dict[str, Any], read_fn,
     raise TypeError(f"unknown expression node {type(expr)}")
 
 
-def eval_kernel_statements(kspec: ir.KernelSpec, read_fn):
-    """Evaluate a kernel's statement list with a custom read; returns the
-    output statement's value."""
-    cdt = const_dtype_of(kspec)
-    env: Dict[str, Any] = {}
-    for stmt in kspec.statements:
-        env[stmt.lhs] = eval_expr_generic(stmt.rhs, env, read_fn, cdt)
-    return env[kspec.output_statement.lhs]
-
-
 def broadcast_input_tile(arr, dim_mask: Tuple[bool, bool, bool],
                          tile_shape: Vec3):
     """Expand a lower-dimensional input's tile slice to the full widened-tile
@@ -308,7 +228,8 @@ def broadcast_input_tile(arr, dim_mask: Tuple[bool, bool, bool],
 def evaluate_chain_tile(program: ir.Program, graph: ChainGraph,
                         tile_fields: Dict[str, Any],
                         origin: Sequence[Any], halo: Vec3,
-                        keep: Optional[Sequence[str]] = None
+                        keep: Optional[Sequence[str]] = None,
+                        core_shape: Optional[Sequence[int]] = None
                         ) -> Dict[str, Any]:
     """Evaluate every kernel of ``program`` over one widened tile.
 
@@ -318,6 +239,8 @@ def evaluate_chain_tile(program: ir.Program, graph: ChainGraph,
     element offset of the tile *core*; entries may be traced.  Returns kernel
     results at the widened tile shape (caller slices out the core); ``keep``
     restricts which kernel results are returned (default: program outputs).
+    ``core_shape`` is the tile core's extent per dim (default: the whole
+    domain); it sizes the tile in dims that no input spans.
     """
     dims = program.dimensions
     tile_shape = None
@@ -337,8 +260,8 @@ def evaluate_chain_tile(program: ir.Program, graph: ChainGraph,
         # No full-rank input: derive the widened shape by combining every
         # spanned input (elementwise max — a lower-rank input must not
         # shadow a higher-rank one); a dim spanned by NO input still has
-        # full-domain kernel fields, so it defaults to the widened global
-        # extent, not 1
+        # full-extent kernel fields, so it takes the widened core extent,
+        # not 1
         guess = [0, 0, 0]
         spanned = [False, False, False]
         for iname, spec in program.inputs.items():
@@ -352,9 +275,10 @@ def evaluate_chain_tile(program: ir.Program, graph: ChainGraph,
                     spanned[d] = True
         if not any(spanned):
             raise ValueError("program has no array inputs")
+        core = tuple(core_shape) if core_shape is not None else dims
         for d in range(3):
             if not spanned[d]:
-                guess[d] = (dims[d] + 2 * halo[d]) if dims[d] > 1 else 1
+                guess[d] = (core[d] + 2 * halo[d]) if dims[d] > 1 else 1
         tile_shape = tuple(guess)
     for iname, spec in program.inputs.items():
         if not spec.is_scalar and not all(spec.dim_mask):
@@ -366,7 +290,7 @@ def evaluate_chain_tile(program: ir.Program, graph: ChainGraph,
             fields[name] = jnp.asarray(arr)
 
     # Death schedule: drop a field's tile after its last consumer so the
-    # compiler can reuse the buffer (bounds live VMEM on deep chains).
+    # compiler can reuse the buffer (bounds live memory on deep chains).
     names = list(keep) if keep is not None else list(program.outputs)
     order = graph.kernel_order
     last_use = last_use_map(program, order, names)

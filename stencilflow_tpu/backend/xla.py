@@ -9,9 +9,9 @@ Two lowering strategies, both correct against the numpy oracle:
   what it can.
 * ``compile_chain(..., strategy="tile")`` evaluates the whole chain through
   the widened-tile evaluator (tile_eval.py) with the domain as a single tile
-  padded by the chain's cumulative halo — the same code path the fused Pallas
-  kernel and the multi-chip shard_map path use, so single-chip XLA, Pallas,
-  and multi-chip results agree structurally.
+  padded by the chain's cumulative halo — the same code path the
+  multi-device shard_map, pipeline and out-of-core bodies use, so their
+  results agree structurally with the single-device one.
 """
 from __future__ import annotations
 

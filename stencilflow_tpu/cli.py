@@ -18,6 +18,7 @@ import sys
 
 
 def _cmd_run(args) -> int:
+    from .device import NoGPUError
     from .driver import VerificationError, run_program
     try:
         res = run_program(
@@ -31,10 +32,6 @@ def _cmd_run(args) -> int:
             halo=args.halo, repetitions=args.repetitions,
             backend=args.backend, print_result=args.print_result,
             host_chunks=args.host_chunks,
-            mxu="off" if args.no_mxu else "auto",
-            mxu_precision=args.mxu_precision,
-            spill="off" if args.no_spill else "auto",
-            ring_storage=args.ring_storage,
             log_level=args.log_level,
             profile_dir=args.profile,
             seed=args.seed,
@@ -42,6 +39,9 @@ def _cmd_run(args) -> int:
     except VerificationError as exc:
         print(f"VERIFICATION FAILED: {exc}", file=sys.stderr)
         return 1
+    except NoGPUError as exc:
+        print(f"error: hardware mode needs a GPU ({exc})", file=sys.stderr)
+        return 2
     except ValueError as exc:
         # configuration errors (bad chunk counts, scope rejections with
         # --backend forced, malformed programs) exit cleanly
@@ -49,13 +49,16 @@ def _cmd_run(args) -> int:
         return 2
     print(f"backend: {res.backend}")
     if res.wall_time_s is not None:
-        from .report import Report
-        rep = Report.build(res.program, analysis=res.analysis)
         gcell = res.program.total_elements / res.wall_time_s / 1e9
-        print(f"wall time: {res.wall_time_s*1e3:.3f} ms/run "
-              f"(~{gcell:.3g} GCell/s incl. transfers; roofline "
-              f"{rep.roofline_gcell_s():.1f} GCell/s — time the "
-              f"on-device loop, bench.py, for kernel throughput)")
+        line = (f"wall time: {res.wall_time_s*1e3:.3f} ms/run "
+                f"(~{gcell:.3g} GCell/s incl. transfers")
+        if args.mode == "hardware":
+            from .device import device_info, peaks_for
+            from .report import Report
+            rep = Report.build(res.program, analysis=res.analysis,
+                               hw=peaks_for(device_info().kind))
+            line += f"; roofline {rep.roofline_gcell_s():.1f} GCell/s"
+        print(line + ")")
     if res.simulation_cycles is not None:
         print(f"simulated cycles: {res.simulation_cycles}")
     if res.verified_against_reference is not None:
@@ -158,7 +161,6 @@ def _cmd_solve(args) -> int:
     solver = make_solver(program, field=args.field, out=args.out,
                          method=args.method, tol=args.tol,
                          maxiter=args.maxiter,
-                         interpret=args.emulation,
                          host_chunks=args.host_chunks)
     x, info = solver(rhs)
     print(f"converged in {info['iterations']} iterations; "
@@ -261,7 +263,7 @@ def _cmd_compile(args) -> int:
     from .data import load_input_arrays
     from .frontend.parser import parse_program
     program = parse_program(args.stencil_file)
-    fn, backend = compile_chain_best(program, interpret=args.emulation)
+    fn, backend = compile_chain_best(program)
     inputs = {k: jnp.asarray(v)
               for k, v in load_input_arrays(program, seed=0).items()}
     import jax
@@ -272,45 +274,6 @@ def _cmd_compile(args) -> int:
         f.write(text)
     print(f"lowered with backend '{backend}' -> {out} "
           f"({len(text)} bytes)")
-    return 0
-
-
-def _cmd_autotune(args) -> int:
-    """Measure every applicable lowering on the attached device and cache
-    the winner (consumed by `run --backend autotuned`)."""
-    from .autotune import autotune, save_result
-    from .frontend.parser import parse_program
-    program = parse_program(args.stencil_file)
-    settings = dict(mxu="off" if args.no_mxu else "auto",
-                    mxu_precision=args.mxu_precision,
-                    spill="off" if args.no_spill else "auto")
-    res = autotune(program, sweep=args.sweep, trials=args.trials,
-                   seed=args.seed, interpret=args.emulation,
-                   allow_reduced_precision=args.allow_reduced_precision,
-                   verbose=not args.json, **settings)
-    path = None
-    if not args.no_cache:
-        path = save_result(program, res, args.cache,
-                           interpret=args.emulation, **settings)
-    if args.json:
-        import numpy as _np
-        print(json.dumps({
-            "winner": res.label,
-            "seconds_per_run": res.seconds,
-            "gcell_s": program.total_elements / res.seconds / 1e9,
-            "timings": {l: (None if not _np.isfinite(t) else t)
-                        for l, t in res.timings.items()},
-            "skipped": res.skipped,
-            "cache": path,
-        }))
-    else:
-        for label, why in res.skipped.items():
-            print(f"  {label:16s} skipped: {why.splitlines()[0][:60]}")
-        gc = program.total_elements / res.seconds / 1e9
-        print(f"winner: {res.label} ({res.seconds * 1e3:.3f} ms/run, "
-              f"{gc:.2f} GCell/s)")
-        if path:
-            print(f"cached -> {path}")
     return 0
 
 
@@ -353,7 +316,9 @@ def _cmd_report(args) -> int:
         for kname, kspec in program.kernels.items():
             print("wrote " + plot_compute_graph(
                 kspec, f"{program.name}_{kname}_compute.png"))
-    report = Report.build(program, analysis)
+    from .device import peaks_for
+    report = Report.build(program, analysis,
+                          hw=peaks_for(args.device_kind))
     mesh_scaling = None
     if args.mesh:
         mesh_dims = _parse_mesh(args.mesh)
@@ -383,26 +348,27 @@ def _cmd_report(args) -> int:
               f"mesh {s['mesh']}, dims->axes {s['dim_axes']}]:")
         print(f"  local block {s['local_dims']}  "
               f"halo {s['halo']}  "
-              f"ICI {s['ici_bytes_per_device']/2**20:.2f} MiB/device")
+              f"exchange {s['link_bytes_per_device']/2**20:.2f} MiB/device")
         print(f"  step: compute {s['t_compute_s']*1e6:.1f} us + "
-              f"ICI {s['t_ici_s']*1e6:.1f} us = "
+              f"exchange {s['t_link_s']*1e6:.1f} us = "
               f"{s['t_step_s']*1e6:.1f} us  "
               f"-> {s['scaled_gcell_s']:.1f} GCell/s, "
               f"efficiency {s['parallel_efficiency']:.2f}")
         if args.comm_overlap:
             o = s["comm_overlap"]
             print(f"  --comm-overlap: interior {o['t_interior_s']*1e6:.1f}"
-                  f" us (hides {o['hidden_ici_s']*1e6:.1f} us of ICI, "
-                  f"{o['exposed_ici_s']*1e6:.1f} us exposed) + strips "
+                  f" us (hides {o['hidden_link_s']*1e6:.1f} us of "
+                  f"exchange, {o['exposed_link_s']*1e6:.1f} us exposed) "
+                  f"+ strips "
                   f"{o['t_strips_s']*1e6:.1f} us "
                   f"({o['strip_cells']/1e6:.2f} Mcell overcompute) = "
                   f"{o['t_step_s']*1e6:.1f} us -> "
                   f"{o['scaled_gcell_s']:.1f} GCell/s")
-            be = o["break_even_ici_s"]
+            be = o["break_even_link_s"]
             print(f"  verdict: overlap "
-                  f"{'WINS' if o['wins'] else 'loses'} at this topology "
+                  f"{'WINS' if o['wins'] else 'loses'} on this mesh "
                   f"(pays above {be*1e6:.1f} us exchange; modeled "
-                  f"{s['t_ici_s']*1e6:.1f} us)")
+                  f"{s['t_link_s']*1e6:.1f} us)")
     return 0
 
 
@@ -453,7 +419,7 @@ def _cmd_partition(args) -> int:
         from .parallel.pipeline import optimize_split
         segments, stats = optimize_split(program, graph, args.devices)
         print(f"optimized cuts: segment loads {stats['segment_loads']} "
-              f"(weighted ops/cell), crossing "
+              f"(ops/cell), crossing "
               f"{stats['cut_bytes_per_cell']} B/cell per cut")
     else:
         segments = split_kernels(graph, args.devices)
@@ -611,14 +577,20 @@ def _cmd_run_distributed(args) -> int:
                   "initialized", file=sys.stderr)
             return 2
     if multihost:
-        # the TPU-native launcher: the JAX runtime owns the mesh — the
-        # coordination service replaces the reference's MPI rendezvous
+        # the JAX runtime owns the mesh — the coordination service
+        # replaces the reference's MPI rendezvous
         # (bin/run_distributed_program.py:98-116,283-299); barriers are
-        # implicit in SPMD program dispatch
+        # implicit in SPMD program dispatch.  Processes sharing a machine
+        # each name their own card: a JAX process reserves most of the
+        # memory of every card it opens
+        kw = {}
+        if args.local_device_ids:
+            kw["local_device_ids"] = [
+                int(x) for x in args.local_device_ids.split(",")]
         jax.distributed.initialize(
             coordinator_address=args.coordinator,
             num_processes=args.num_hosts,
-            process_id=args.host_id)
+            process_id=args.host_id, **kw)
     import numpy as np
     from jax.sharding import Mesh
 
@@ -709,6 +681,7 @@ def _cmd_run_distributed(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from .device import H100_SXM, PEAKS
     ap = argparse.ArgumentParser(prog="stencilflow_tpu")
     sub = ap.add_subparsers(dest="command", required=True)
 
@@ -723,38 +696,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--halo", type=int, default=0)
     p.add_argument("--repetitions", type=int, default=1)
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "autotuned", "stream", "panel",
-                            "overlap", "rows", "pallas", "xla",
-                            "interpreter"])
+                   choices=["auto", "xla", "interpreter"],
+                   help="auto/xla: the fused-XLA chain; interpreter: the "
+                        "numpy oracle itself")
     p.add_argument("--host-chunks", type=int, default=0, metavar="N",
                    help="out-of-core: stream the domain through the "
                         "device in N i-chunks (for domains larger than "
                         "device memory; inputs/outputs stay on host)")
-    p.add_argument("--no-mxu", action="store_true",
-                   help="disable banded-matmul lowering of wide stages")
-    p.add_argument("--no-spill", action="store_true",
-                   help="disable HBM ring spilling (the memory optimizer's "
-                        "fast->slow placement) when rings exceed VMEM")
-    p.add_argument("--mxu-precision", default="split",
-                   choices=["split", "bf16", "exact"],
-                   help="band-transform matmul precision: split = bf16 "
-                        "hi/lo operand splitting with f32 accumulation "
-                        "(near-f32, ~3x faster); bf16 = single-pass bf16 "
-                        "operands (fastest, ~1e-2-level error — opt-in "
-                        "only; verification widens to its envelope, or "
-                        "set --tolerance); exact = full-f32 passes")
-    p.add_argument("--ring-storage", default="off",
-                   choices=["off", "bfloat16"],
-                   help="stage-ring storage dtype for --backend stream: "
-                        "bfloat16 halves ring VMEM and store traffic "
-                        "while computing in f32 (~1 bf16 ulp rounding "
-                        "per stage; verification widens to the bf16 "
-                        "envelope)")
     p.add_argument("--tolerance", type=float, default=None,
                    help="relative verification tolerance for "
                         "--compare-to-reference / --run-simulation "
-                        "(default: config.VERIFY_RTOL, widened "
-                        "automatically for MXU / bf16 runs)")
+                        "(default: config.VERIFY_RTOL)")
     p.add_argument("--print-result", action="store_true")
     p.add_argument("--generate-input", action="store_true",
                    help="replace file-backed inputs with constant data "
@@ -828,7 +780,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host-chunks", type=int, default=0, metavar="N",
                    help="out-of-core solve: chunked operator sweeps, "
                         "host-resident CG vectors")
-    p.add_argument("--emulation", action="store_true")
     p.add_argument("-o", "--output", help="write x to this .dat file")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=_cmd_solve)
@@ -875,46 +826,14 @@ def build_parser() -> argparse.ArgumentParser:
                             "artifact")
     p.add_argument("stencil_file")
     p.add_argument("-o", "--output")
-    p.add_argument("--emulation", action="store_true",
-                   help="lower the emulation (interpret) path")
     p.set_defaults(fn=_cmd_compile)
-
-    p = sub.add_parser("autotune",
-                       help="measure every applicable lowering on this "
-                            "device and cache the winner for "
-                            "`run --backend autotuned`")
-    p.add_argument("stencil_file")
-    p.add_argument("--sweep", action=argparse.BooleanOptionalAction,
-                   default=True,
-                   help="sweep explicit panel/overlap/rows block sizes, "
-                        "including over-gate configs the blind policy "
-                        "won't touch (measured +18%% at (128,768,768)x2 "
-                        "— RESULTS.md); --no-sweep tunes only the "
-                        "auto-policy candidates")
-    p.add_argument("--trials", type=int, default=3)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--emulation", action="store_true",
-                   help="tune the interpret path (CI/testing)")
-    p.add_argument("--no-mxu", action="store_true")
-    p.add_argument("--no-spill", action="store_true")
-    p.add_argument("--mxu-precision", default="split",
-                   choices=["split", "bf16", "exact"])
-    p.add_argument("--allow-reduced-precision", action="store_true",
-                   help="also measure the documented opt-in rounding "
-                        "envelopes (bf16 ring storage, +12-37%% where "
-                        "ring traffic binds); a reduced-precision "
-                        "winner is flagged in the cache and `run "
-                        "--backend autotuned` widens verification to "
-                        "the bf16 envelope")
-    p.add_argument("--cache", help="cache file (default: "
-                                   "~/.cache/stencilflow_tpu/autotune.json)")
-    p.add_argument("--no-cache", action="store_true")
-    p.add_argument("--json", action="store_true")
-    p.set_defaults(fn=_cmd_autotune)
 
     p = sub.add_parser("report", help="analytic performance report")
     p.add_argument("stencil_file")
     p.add_argument("--json", action="store_true")
+    p.add_argument("--device-kind", default=H100_SXM, choices=sorted(PEAKS),
+                   help="device whose published peaks the roofline uses "
+                        "(a jax device_kind)")
     p.add_argument("--plot", action="store_true",
                    help="write chain/compute graph PNGs")
     p.add_argument("--verbose", action="store_true",
@@ -930,7 +849,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--comm-overlap", action="store_true",
                    help="with --mesh: print the comm/compute-overlap "
                         "tradeoff (hidden exchange vs strip overcompute) "
-                        "and the per-topology break-even")
+                        "and its break-even")
     p.set_defaults(fn=_cmd_report)
 
     p = sub.add_parser("synthesize", help="generate a benchmark program")
@@ -1009,9 +928,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-host: total number of processes")
     p.add_argument("--host-id", type=int, default=None,
                    help="multi-host: this process's id (0-based)")
+    p.add_argument("--local-device-ids", default=None, metavar="IDS",
+                   help="multi-host: comma-separated local GPU ids this "
+                        "process owns (processes sharing a machine take "
+                        "one card each; default: every local device)")
     p.add_argument("--comm-overlap", action="store_true",
                    help="domain mode: evaluate the block interior with no "
-                        "data dependency on the halo ppermutes (ICI "
+                        "data dependency on the halo ppermutes (exchange "
                         "latency hiding at the cost of strip overcompute)")
     p.set_defaults(fn=_cmd_run_distributed)
 

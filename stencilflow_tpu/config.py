@@ -2,8 +2,8 @@
 
 The op-latency table mirrors the reference's per-op pipeline-latency model
 (/root/reference/stencilflow/compute_graph.config:1-21) and is used for delay
-alignment analysis and the dataflow simulator.  The TPU-side constants describe
-the hardware model used by the analytic report and the Pallas backend planner.
+alignment analysis and the dataflow simulator.  Device peak rates live in
+device.py.
 """
 from __future__ import annotations
 
@@ -41,15 +41,6 @@ OP_LATENCY = {
 #  /root/reference/stencilflow/helper.py:261-276).
 EPS = 1e-10
 VERIFY_RTOL = 1e-5
-# the MXU banded-matmul lowering re-associates f32 sums (split-precision
-# bf16 hi/lo passes); its guaranteed envelope is 3e-5 relative (enforced
-# by tests/test_fuzz.py) — the driver verifies MXU-lowered runs at this
-MXU_VERIFY_RTOL = 3e-5
-# opt-in single-pass bf16 band transforms (mxu_precision="bf16") round
-# matrices and operand planes to 8-bit mantissas: per-stage error ~2^-9
-# relative, compounding over the chain — the driver verifies such runs
-# at this envelope (tests/test_mxu.py::test_box_chain_bf16_single_pass)
-BF16_VERIFY_RTOL = 2e-2
 
 # Junk value written into shrink-boundary halo cells
 # (reference: /root/reference/stencilflow/stencil/_common.py:8).
@@ -57,67 +48,3 @@ JUNK_VAL = -100000.0
 
 # Canonical iterator names (reference: helper.py:27).
 ITERATORS = ("i", "j", "k")
-
-# --- TPU hardware model (used by report + backend planner) -----------------
-# Per-chip HBM bandwidth (bytes/s) and VMEM budget (bytes) for the roofline
-# model.  Defaults describe a TPU v5e chip; override via Report(..., hw=...).
-TPU_HBM_BANDWIDTH = 819e9       # v5e: ~819 GB/s
-TPU_HBM_BYTES = 16 * 2**30      # v5e: 16 GiB per chip (out-of-core gate)
-# Conservative per-core VMEM budget; real chips have 64-128 MiB but the
-# compiler needs headroom for pipelining buffers.
-TPU_VMEM_BYTES = 32 * 2**20
-# VPU elementwise ceiling (ops/s) — MEASURED, round 3 (scripts/
-# vpu_ceiling.py; RESULTS.md "VPU ceiling recalibration").  The r1/r2
-# one-ALU-per-lane model (8*128 x 940 MHz = 0.96e12) was EXCEEDED by
-# real kernels (hotspot panel: 2.77e12 counted ops/s), which proves
-# > 2 ALUs per lane; the v5e VPU has 4 ALUs/lane, giving the issue
-# ceiling 8*128*4 x 940 MHz.  No measured kernel exceeds it (best:
-# 0.72).  This is the "peak performance" term of the reference's model
-# (/root/reference/bin/report.py:42-43) made un-exceedable.
-TPU_VPU_ELEMOPS = 8 * 128 * 4 * 940e6          # 3.85e12, ALU-issue peak
-# Sustained whole-plane single-op rate (one elementwise op over a VMEM-
-# resident (512,1024) f32 block, serial chain): measured 1.85e12 —
-# VMEM-pass bound at ~2 issues/lane/cycle.  Deep fused expressions
-# evaluate per-tile in registers and land between the two; use this as
-# the EXPECTATION for shallow mask/shift-heavy kernels, and ELEMOPS as
-# the ceiling.
-TPU_VPU_PASS_RATE = 1.85e12
-TPU_VPU_FLOPS = TPU_VPU_ELEMOPS  # alias
-TPU_MXU_BF16_FLOPS = 197e12     # v5e peak bf16
-# Physical per-core VMEM (v5e: 128 MiB) — the hard cap for Mosaic's
-# compile-time vmem_limit_bytes guard.
-TPU_VMEM_PHYSICAL = 128 * 2**20
-# Largest vmem_limit_bytes that keeps the DMA pipeline at full speed.
-# Measured on chip (v5e, RESULTS.md round 2): a passthrough Pallas
-# kernel with the streaming grid runs 84-88 GCell/s at limits <= 64 MiB
-# (and at the default) but 40-41 GCell/s at limits >= 96 MiB — raising
-# the limit evidently takes buffer space away from Mosaic's block DMA
-# pipelining.  Kernels whose own state fits should therefore pass
-# 64 MiB, not the physical maximum.
-TPU_VMEM_FAST_LIMIT = 64 * 2**20
-
-
-def vmem_limit_for(est_state_bytes: int) -> int:
-    """Mosaic ``vmem_limit_bytes`` for a kernel whose rings + pipeline
-    windows + temporaries are estimated at ``est_state_bytes``: the
-    fast 64 MiB limit when the state fits under it (with 8 MiB slack),
-    else the estimate plus 16 MiB headroom, capped at physical VMEM —
-    accepting the measured ~2x DMA-throughput penalty only when the
-    state genuinely needs the space."""
-    if est_state_bytes + 8 * 2**20 <= TPU_VMEM_FAST_LIMIT:
-        return TPU_VMEM_FAST_LIMIT
-    return min(int(est_state_bytes) + 16 * 2**20, TPU_VMEM_PHYSICAL)
-# Streaming-backend VMEM budget: the chip's real VMEM (v5e: 128 MiB)
-# minus 8 MiB explicit slack for what io_window_bytes does not model
-# (semaphores, compiler scratch, >2-level buffering); the planner spends
-# 0.7 of the budget on rings + pipeline windows + MXU assets.  (Both
-# terms are accounted explicitly since the io_window_bytes audit; the
-# previous 96 MiB default predated it and double-counted conservatism.)
-TPU_STREAM_VMEM_BUDGET = 120 * 2**20
-# ICI bandwidth per link direction (bytes/s); v5e 2-D torus, ~45 GB/s
-# one-way per link.  Used by the mesh-scaling model (report) for the
-# halo-exchange cost of domain decomposition.
-TPU_ICI_BANDWIDTH = 45e9
-
-# Fraction of VMEM the fused-kernel planner is allowed to use for stage tiles.
-VMEM_PLANNER_FRACTION = 0.5

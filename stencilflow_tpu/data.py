@@ -93,14 +93,19 @@ def arrays_are_equal(reference, result,
     which is sound for any sign (see tests/test_data.py negative-output
     regression).
     """
+    if np.shape(reference) != np.shape(result):
+        return False
+    return max_relative_error(reference, result) <= tolerance
+
+
+def max_relative_error(reference, result) -> float:
+    """Largest ``|ref - res| / (max(|ref|, |res|) + eps)`` over the arrays
+    (the quantity :func:`arrays_are_equal` bounds)."""
     reference = np.asarray(reference, dtype=np.float64)
     result = np.asarray(result, dtype=np.float64)
-    if reference.shape != result.shape:
-        return False
     denom = (np.maximum(np.abs(reference), np.abs(result))
              + np.finfo(np.float64).eps)
-    relative_diff = np.abs(reference - result) / denom
-    return bool(np.all(relative_diff <= tolerance))
+    return float(np.max(np.abs(reference - result) / denom, initial=0.0))
 
 
 def prune_halo(arr: np.ndarray, dimensions: Sequence[int],

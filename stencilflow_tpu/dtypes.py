@@ -2,7 +2,7 @@
 
 Maps the JSON dialect's dtype names onto numpy/JAX dtypes (the reference maps
 them onto DaCe types instead: /root/reference/stencilflow/helper.py:47-59).
-We additionally support bfloat16, the native TPU compute dtype.
+We additionally support bfloat16.
 """
 from __future__ import annotations
 

@@ -16,9 +16,8 @@ per-source-array bookkeeping whose per-edge results depend on dict iteration
 order when multiple source arrays share a predecessor.  For well-formed
 programs the results coincide.
 
-On TPU these numbers drive (a) the dataflow simulator's buffer bounds, (b)
-the fused-Pallas planner's VMEM working-set estimate, and (c) the analytic
-report.
+These numbers drive (a) the dataflow simulator's buffer bounds, (b) the
+fused evaluators' halo budget, and (c) the analytic report.
 """
 from __future__ import annotations
 
@@ -339,7 +338,7 @@ class ChainAnalysis:
         core region.  halo(k) = max over consumers c of
         halo(c) + radius(c reads k), where radius is the max |offset| per dim.
 
-        This is the tiled-TPU equivalent of the reference's delay/line buffer
+        This is the tiled equivalent of the reference's delay/line buffer
         sizing: instead of skewing streams in time, we widen tiles in space.
         """
         halo: Dict[str, Vec3] = {}

@@ -1,6 +1,6 @@
 """Kernel-chain DAG construction and traversal.
 
-TPU-native re-think of the reference's ``KernelChainGraph``
+A re-think of the reference's ``KernelChainGraph``
 (/root/reference/stencilflow/kernel_chain_graph.py:243-272,417-455): nodes are
 field names (inputs, kernels, outputs), edges connect producers to consumers
 by name matching.  We keep the graph as plain adjacency dicts (no networkx)

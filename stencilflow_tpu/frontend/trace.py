@@ -2,7 +2,7 @@
 
 The reference's second frontend imports DaCe SDFG programs (COSMO weather
 kernels) into the JSON dialect (/root/reference/stencilflow/
-sdfg_to_stencilflow.py:522-767).  The TPU-native analogue imports *Python
+sdfg_to_stencilflow.py:522-767).  The analogue here imports *Python
 functions over symbolic fields*: the function is executed once with
 ``StencilValue`` tracers, every relative access and arithmetic op is
 recorded into the typed IR, and stage boundaries are materialized exactly

@@ -12,7 +12,7 @@ reference's CPU backend (/root/reference/stencilflow/stencil/cpu.py:58-102):
 
 The same code path runs under numpy (bit-exact CPU oracle, float64 capable)
 and under jax.numpy (jit-able; the XLA backend wraps this with ``jax.jit`` so
-the whole chain fuses into one compiled program).  This is the TPU-native
+the whole chain fuses into one compiled program).  This is the
 re-think of ``generate_reference`` (sdfg_generator.py:580-677): instead of
 generating a loop-nest SDFG, the interpreter IS the reference program, traced
 by JAX when performance matters.
@@ -78,7 +78,7 @@ def _match_mixed(a, b):
     STRONG floating operand converts to that float dtype before the op,
     i.e. JAX's no-f64 lattice (int32 * float32 computes in float32).
     numpy's NEP 50 would widen int32/int64 x float32 to float64 — a
-    compute dtype the TPU backends cannot express, so the jnp engines
+    compute dtype the JAX engines do not use with x64 off, so the jnp engines
     could never match the oracle bit-exactly on such programs.  Weak
     python scalars are untouched (NEP 50 already agrees with JAX there);
     float x float and int x int keep numpy semantics."""
@@ -229,8 +229,8 @@ class ChainInterpreter:
         # In NON-floating kernels float consts pin to float32 — the
         # framework's defined semantics: numpy would otherwise
         # materialize a weak const STRONG float64 inside np.where /
-        # np.minimum, forcing f64 compute the TPU backends cannot
-        # express, so f32 is the spec and every engine implements it.
+        # np.minimum, forcing f64 compute the JAX engines do not
+        # use with x64 off, so f32 is the spec and every engine implements it.
         self._kdtype = dt if is_floating(dt) else np.dtype(np.float32)
         env: Dict[str, Any] = {}
         for stmt in kspec.statements:

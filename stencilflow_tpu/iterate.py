@@ -2,18 +2,18 @@
 
 The reference has no iterative state (each run is one pass of the chain;
 deep time-stepping is expressed by unrolling, e.g. jacobi3d_*_8itr).  For
-production solvers the TPU-native framework provides the missing driver:
+production solvers this module provides the missing driver:
 
-* ``make_step`` compiles one chain evaluation (any backend, single- or
-  multi-chip) into a jittable state-update ``{field: arr} -> {field: arr}``
+* ``make_step`` compiles one chain evaluation (single- or multi-device,
+  or out of core) into a state-update ``{field: arr} -> {field: arr}``
   by feeding designated outputs back into inputs;
 * ``iterate`` runs N steps with the loop ON DEVICE (``lax.fori_loop`` over
   chunks — no per-step dispatch), periodically checkpointing state to
   ``.npz`` files and resuming from the latest checkpoint after a failure —
   the checkpoint/resume subsystem the reference lacks (SURVEY.md §5).
 
-Multi-chip: pass a ``mesh`` + ``dim_axes``; the step is the shard_map
-domain-decomposed evaluation (one cumulative-halo ICI exchange per step) and
+Multi-device: pass a ``mesh`` + ``dim_axes``; the step is the shard_map
+domain-decomposed evaluation (one cumulative-halo exchange per step) and
 state stays device-resident and sharded between steps.
 """
 from __future__ import annotations
@@ -111,12 +111,9 @@ def compose_iterations(program: ir.Program, n: int,
 
 def make_step(program: ir.Program,
               feed: Optional[Dict[str, str]] = None,
-              backend: str = "auto",
-              interpret: bool = False,
               mesh=None, dim_axes: Optional[Sequence] = None,
               analysis: Optional[ChainAnalysis] = None,
-              host_chunks: int = 0,
-              ring_storage: str = "off"
+              host_chunks: int = 0
               ) -> Tuple[Callable, Dict[str, str]]:
     """Compile one time step.  Returns ``(step, feed)`` where
     ``step(state_dict) -> state_dict`` carries every program input; fed
@@ -137,21 +134,12 @@ def make_step(program: ir.Program,
             raise IterateError(
                 f"fed input {iname!r} must span the full domain")
 
-    if ring_storage != "off" and backend != "stream":
-        raise IterateError(
-            "ring_storage requires backend='stream'")
     analysis = analysis or ChainAnalysis.run(program)
     if host_chunks and host_chunks > 1:
         if mesh is not None:
             raise IterateError("host_chunks is incompatible with mesh")
-        if backend not in ("auto", "stream", "xla"):
-            raise IterateError(
-                f"backend {backend!r} is not available out-of-core "
-                "(the chunk kernel supports auto/stream/xla)")
         from .outofcore import compile_chunked_chain, run_chunked
-        compiled = compile_chunked_chain(program, host_chunks, analysis,
-                                         backend=backend,
-                                         interpret=interpret)
+        compiled = compile_chunked_chain(program, host_chunks, analysis)
 
         def step(state: Dict[str, Any]) -> Dict[str, Any]:
             out = run_chunked(program, state, host_chunks,
@@ -168,23 +156,10 @@ def make_step(program: ir.Program,
                                "(None, 'x', 'y')")
         from .parallel.domain import compile_sharded_chain
         fn, _plan = compile_sharded_chain(program, mesh, dim_axes,
-                                          analysis, interpret=interpret)
-    elif backend == "auto":
-        from .backend import compile_chain_best
-        fn, _name = compile_chain_best(program, analysis,
-                                       interpret=interpret)
-    elif backend == "stream":
-        from .backend.stream import compile_chain_stream
-        fn = compile_chain_stream(program, analysis, interpret=interpret,
-                                  ring_storage=ring_storage)
-    elif backend == "pallas":
-        from .backend.pallas import compile_chain_pallas
-        fn = compile_chain_pallas(program, analysis, interpret=interpret)
-    elif backend == "xla":
-        from .backend import compile_chain
-        fn = compile_chain(program, analysis)
+                                          analysis)
     else:
-        raise IterateError(f"unknown backend: {backend}")
+        from .backend import compile_chain_best
+        fn, _name = compile_chain_best(program, analysis)
 
     def step(state: Dict[str, Any]) -> Dict[str, Any]:
         out = fn(state)
@@ -209,7 +184,6 @@ def _latest_checkpoint(ckpt_dir: str) -> Optional[Tuple[int, str]]:
 
 def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
             feed: Optional[Dict[str, str]] = None,
-            backend: str = "auto", interpret: bool = False,
             mesh=None, dim_axes: Optional[Sequence] = None,
             chunk: int = 16,
             fuse: int = 1,
@@ -259,8 +233,8 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
 
     analysis = ChainAnalysis.run(program)
     host_mode = bool(host_chunks and host_chunks > 1)
-    step, feed = make_step(program, feed, backend, interpret, mesh,
-                           dim_axes, analysis, host_chunks=host_chunks)
+    step, feed = make_step(program, feed, mesh, dim_axes, analysis,
+                           host_chunks=host_chunks)
 
     start = 0
     shardings: Dict[str, Any] = {}
@@ -285,7 +259,12 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
                 f"unknown checkpoint_format: {checkpoint_format!r}")
         os.makedirs(checkpoint_dir, exist_ok=True)
         if checkpoint_format == "orbax":
-            import orbax.checkpoint as ocp
+            try:
+                import orbax.checkpoint as ocp
+            except ImportError as exc:
+                raise IterateError(
+                    "checkpoint_format='orbax' needs the orbax-checkpoint "
+                    "package, which is not installed; use 'npz'") from exc
             manager = ocp.CheckpointManager(
                 os.path.abspath(checkpoint_dir),
                 options=ocp.CheckpointManagerOptions(
@@ -328,14 +307,9 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
     else:
         @jax.jit
         def run_chunk(state, n):
-            # two steps per fori iteration: with a single-step body XLA
-            # pins the carry to fixed buffers and a pallas_call result
-            # cannot alias its operand, so every iteration pays a full
-            # extra HBM read+write copying each carried field back into
-            # its carry slot — ~2x apparent cost on HBM-bound kernels
-            # (scripts/loop_copy_probe.py).  With two steps the second
-            # output lands in the freed carry buffer: no copy.  An odd
-            # remainder step runs under a cond.
+            # two steps per fori iteration, an odd remainder under a cond
+            # (whether the unroll still saves a carry copy on the GPU is
+            # not measured)
             state = lax.fori_loop(0, n // 2,
                                   lambda _i, s: step(step(s)), state)
             return lax.cond(n % 2 == 1, step, lambda s: s, state)

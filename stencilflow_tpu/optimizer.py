@@ -1,8 +1,8 @@
 """Greedy fast/slow memory placement for stream buffers.
 
 Reference: /root/reference/stencilflow/optimizer.py:30-356.  Every delay and
-line buffer of the streaming schedule starts in fast memory (VMEM); the
-optimizer spills chosen buffers to slow memory (HBM circular buffers with
+line buffer of the streaming schedule starts in fast memory; the optimizer
+spills chosen buffers to slow memory (off-chip circular buffers with
 double-buffered async copies) under capacity / bandwidth bounds.  Metric and
 update rule mirror the reference: a buffer's spill "price" is the extra
 slow-memory streaming traffic it introduces — ``C`` bytes per fast↔slow
@@ -11,11 +11,7 @@ greedy loop always spills the buffer with the best bytes-freed-per-traffic
 ratio, updating its chain neighbors' prices ((fast,fast)=2C, (fast,slow)=C,
 (slow,slow)=0; optimizer.py:209-248,301-307).
 
-The result is a set of ``swap_out`` marks consumed by the report.  The
-streaming backend realizes the same fast->slow placement at the ring level:
-when rings exceed the VMEM budget and no j-tile fits, it spills the rings
-with the best VMEM-saved-per-extra-HBM-traffic ratio to HBM circular
-buffers moved by async DMA (backend/stream.py, ``spill="auto"``).
+The result is a set of ``swap_out`` marks consumed by the report.
 """
 from __future__ import annotations
 

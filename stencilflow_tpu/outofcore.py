@@ -3,22 +3,17 @@
 The reference's defining property is that domains are *never resident
 on-chip* — one element per cycle flows from DRAM through the pipeline
 (/root/reference/stencilflow/sdfg_generator.py:248-467: read maps feed
-FIFOs, buffer state is only ``stencil extent x plane size``).  On TPU the
-fused streaming kernel already gives the VMEM level of that story (HBM is
-"DRAM", VMEM rings are the line buffers); this module adds the next level
-up: when the domain does not fit **HBM**, stream i-chunks from host memory
-through the same compiled kernel.
+FIFOs, buffer state is only ``stencil extent x plane size``).  This module
+adds the level above device memory: when the domain does not fit it, stream
+i-chunks from host memory through one compiled chunk kernel.
 
 Mechanics: the i axis is split into C chunks.  Each chunk's inputs are
 host-sliced with the chain's cumulative i-halo on both sides (zero-padded
-at global edges — the kernel's origin-based boundary masks treat those
+at global edges — the evaluator's origin-based boundary masks treat those
 exactly like the globally-OOB reads of the sharded path), one jitted
 origin-parameterized kernel evaluates all chunks, and outputs are
-assembled on host.  Per-chunk device residency is O(N/C).  The device
-kernel is the same per-block streaming lowering as domain decomposition
-(parallel/domain.py:plan_local_stream — j-tiling, MXU banded matmuls,
-and HBM ring spill all apply), so out-of-core composes with every
-single-chip optimization.
+assembled on host.  Per-chunk device residency is O(N/C).  The chunk
+kernel is the fused tile evaluator of the single-device backend.
 
 Inputs may be numpy arrays or ``np.memmap``s (so the working set never
 has to exist in host RAM either); outputs are written into caller-provided
@@ -31,7 +26,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from . import config, ir
+from . import ir
 from .frontend.analysis import ChainAnalysis
 from .backend.xla import chain_halo
 
@@ -42,29 +37,13 @@ class ChunkPlan:
     chunks: int
     block: int      # core i-planes per chunk
     halo: int       # i-halo each side (the chain's cumulative i extent)
-    backend: str    # "stream" | "xla"
+    backend: str    # "xla" | "sharded-xla"
     config: Dict[str, Any]
-
-
-def _fake_plan(program: ir.Program, block, halo):
-    """A single-block DomainDecomposition carrier (no mesh) so the
-    per-block stream chooser can be reused verbatim."""
-    from .parallel.domain import DomainDecomposition
-    return DomainDecomposition(program=program, mesh=None,
-                               dim_axes=(None, None, None),
-                               halo=halo, block=block)
 
 
 def compile_chunked_chain(program: ir.Program,
                           chunks: int,
-                          analysis: Optional[ChainAnalysis] = None,
-                          backend: str = "auto",
-                          interpret: bool = False,
-                          mxu: str = "auto",
-                          mxu_precision: str = "split",
-                          spill: str = "auto",
-                          vmem_budget: int =
-                          config.TPU_STREAM_VMEM_BUDGET):
+                          analysis: Optional[ChainAnalysis] = None):
     """Build ``(chunk_fn, plan)``: a jitted ``chunk_fn(origin_i, tiles)
     -> outputs`` evaluating one i-chunk, compiled once for all chunks.
 
@@ -77,8 +56,7 @@ def compile_chunked_chain(program: ir.Program,
     import jax.numpy as jnp
 
     analysis = analysis or ChainAnalysis.run(program)
-    dims = program.dimensions
-    I, J, K = dims
+    I = program.dimensions[0]
     if len(program.raw_dimensions) < 2 or I <= 1:
         raise ValueError("out-of-core chunking streams the i axis; "
                          f"domain {program.raw_dimensions} has no i "
@@ -90,52 +68,21 @@ def compile_chunked_chain(program: ir.Program,
     if chunks > 1 and h >= Ic:
         raise ValueError(f"chain i-halo {h} >= chunk block {Ic}; "
                          "use fewer chunks")
-    plan3 = _fake_plan(program, (Ic, J, K), (h if chunks > 1 else 0, 0, 0))
-    halo_i = plan3.halo[0]
-
-    if backend == "auto":
-        on_cpu = jax.devices()[0].platform == "cpu"
-        backend = "xla" if (interpret or on_cpu) else "stream"
-
+    halo_i = h if chunks > 1 else 0
     raw = program.raw_dimensions
     local_raw = (Ic,) + tuple(raw[1:])
-
-    if backend == "stream":
-        from .parallel.domain import plan_local_stream
-        got = plan_local_stream(program, analysis, plan3,
-                                interpret=interpret, mxu=mxu,
-                                mxu_precision=mxu_precision,
-                                spill=spill, vmem_budget=vmem_budget)
-        if got is not None:
-            stream_fn, extra_j_pad, pool_globals, _pspecs, cfg = got
-            # single block (n_j = n_k = 1): every pooled matrix IS the
-            # local slice; the kernel wrapper reshapes to local_shapes
-            pools = {k: jnp.asarray(v) for k, v in pool_globals.items()}
-
-            def body(origin_i, tiles):
-                from .parallel.domain import pad_j_tiles
-                tiles = pad_j_tiles(program, tiles, extra_j_pad)
-                origin = jnp.stack([jnp.int32(origin_i), jnp.int32(0),
-                                    jnp.int32(0)])
-                results = stream_fn(origin, tiles, pools)
-                return {n: arr.reshape(local_raw)
-                        for n, arr in results.items()}
-
-            plan = ChunkPlan(chunks=chunks, block=Ic, halo=halo_i,
-                             backend="stream", config=cfg)
-            return jax.jit(body), plan
-        backend = "xla"   # nothing fits: fall through
 
     graph = analysis.graph
     from .backend.tile_eval import evaluate_chain_tile
 
     def body(origin_i, tiles):
-        # evaluate_chain_tile takes the *core* origin (the stream kernel
-        # takes the widened one, hence the +halo_i here only)
+        # evaluate_chain_tile takes the *core* origin; origin_i is the
+        # chunk's first widened plane
         origin = [jnp.int32(origin_i) + halo_i, jnp.int32(0),
                   jnp.int32(0)]
-        results = evaluate_chain_tile(program, graph, tiles, origin,
-                                      (halo_i, 0, 0))
+        results = evaluate_chain_tile(
+            program, graph, tiles, origin, (halo_i, 0, 0),
+            core_shape=(Ic,) + tuple(program.dimensions[1:]))
         core = (slice(halo_i, halo_i + Ic),)
         return {n: arr[core].reshape(local_raw)
                 for n, arr in results.items()}
@@ -155,13 +102,13 @@ def compile_chunked_sharded(program: ir.Program,
     mesh axes (i must stay None: it is the chunked streaming dim).  Per
     device the chunk body holds O((block + 2h) * J/X * K/Y): each host
     feeds its shard's i-chunks while j/k halos come from mesh neighbors
-    over ICI (multi-hop when the chain halo exceeds a shard).
+    (multi-hop when the chain halo exceeds a shard).
 
     Returns ``(chunk_fn, plan)`` with the same ``chunk_fn(origin_i,
     tiles) -> outputs`` contract as compile_chunked_chain — tiles and
     outputs are GLOBAL (j, k) extents; shard_map shards/assembles them.
     The reference's long-domain story combines its Optimizer spill with
-    split_sdfg (SURVEY.md §5); this composes the TPU analogues."""
+    split_sdfg (SURVEY.md §5); this composes the two analogues here."""
     import jax
     import jax.numpy as jnp
     from jax import lax
@@ -225,7 +172,8 @@ def compile_chunked_sharded(program: ir.Program,
                   xidx[1] * loc[1] if 1 in dax else 0,
                   xidx[2] * loc[2] if 2 in dax else 0)
         results = evaluate_chain_tile(program, graph, wide, origin,
-                                      tuple(h))
+                                      tuple(h),
+                                      core_shape=(Ic, loc[1], loc[2]))
         core = (slice(h[0], h[0] + Ic), slice(h[1], h[1] + loc[1]),
                 slice(h[2], h[2] + loc[2]))
         return {n: arr[core] for n, arr in results.items()}

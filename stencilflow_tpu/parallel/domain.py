@@ -1,11 +1,12 @@
-"""Domain decomposition over a device mesh with ICI halo exchange.
+"""Domain decomposition over a device mesh with halo exchange.
 
 Each device owns a contiguous block of the (i, j, k) domain.  One halo
 exchange per chain evaluation: every sharded input sends slabs of the chain's
-*cumulative* halo width to its mesh neighbors via ``lax.ppermute`` (riding
-ICI), after which the whole kernel chain is evaluated locally on the widened
-block through the shared tile evaluator — communication volume is the
-minimum possible for a fused chain (one halo per input, not one per stage).
+*cumulative* halo width to its mesh neighbors via ``lax.ppermute`` (which XLA
+hands to NCCL on the GPU), after which the whole kernel chain is evaluated
+locally on the widened block through the shared tile evaluator —
+communication volume is the minimum possible for a fused chain (one halo per
+input, not one per stage).
 
 Global boundary blocks receive zero slabs from ppermute (no source sends to
 them), which is safe: the tile evaluator masks every out-of-domain read with
@@ -13,8 +14,8 @@ its boundary condition using *global* coordinates derived from the device's
 mesh position.
 
 Reference counterpart: the multi-FPGA `split_sdfg` + SMI streams
-(/root/reference/stencilflow/sdfg_generator.py:782-1000); this module is the
-idiomatic TPU mapping (shard_map + collectives) of that capability.
+(/root/reference/stencilflow/sdfg_generator.py:782-1000); this module maps
+that capability onto shard_map + collectives.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from .. import config, ir
+from .. import ir
 from ..frontend.analysis import ChainAnalysis
 from ..frontend.chain import ChainGraph
 from ..backend.xla import chain_halo
@@ -77,7 +78,7 @@ class DomainDecomposition:
             b = dims[d] // n
             # unsharded dims span the whole domain locally: offset reads
             # wrap onto globally-OOB cells which every BC mask corrects, so
-            # no widening is needed there (see backend/stream.py)
+            # no widening is needed there
             h = full_halo[d] if (ax is not None and n > 1) else 0
             if h >= b > 0 and h > 0:
                 raise ValueError(
@@ -108,7 +109,7 @@ class DomainDecomposition:
 def _exchange_halo(arr, local_dims: Dict[int, int],
                    plan: DomainDecomposition):
     """Widen a local block by the halo in every spanned dim, pulling neighbor
-    slabs over ICI (zeros at global boundaries)."""
+    slabs (zeros at global boundaries)."""
     for pos, d in enumerate(local_dims):
         h = plan.halo[d]
         ax = plan.dim_axes[d]
@@ -133,11 +134,9 @@ def _exchange_halo(arr, local_dims: Dict[int, int],
     return arr
 
 
-def _widen_and_origin(plan: DomainDecomposition, inputs: Dict[str, Any],
-                      i_origin_shift: int = 0):
+def _widen_and_origin(plan: DomainDecomposition, inputs: Dict[str, Any]):
     """Shared per-device preamble: halo-exchange every array input and
-    compute this shard's global origin (optionally shifted back by the
-    exchanged i-halo for the streaming kernel)."""
+    compute this shard's global origin."""
     program = plan.program
     tiles: Dict[str, Any] = {}
     for name, spec in program.inputs.items():
@@ -152,10 +151,7 @@ def _widen_and_origin(plan: DomainDecomposition, inputs: Dict[str, Any],
     for d in range(3):
         ax = plan.dim_axes[d]
         idx = lax.axis_index(ax) if ax is not None else 0
-        off = jnp.int32(idx * plan.block[d])
-        if d == 0 and i_origin_shift:
-            off = off - jnp.int32(i_origin_shift)
-        origin.append(off)
+        origin.append(jnp.int32(idx * plan.block[d]))
     return tiles, origin
 
 
@@ -164,7 +160,8 @@ def _local_forward(plan: DomainDecomposition, graph: ChainGraph,
     program = plan.program
     halo = plan.halo
     tiles, origin = _widen_and_origin(plan, inputs)
-    results = evaluate_chain_tile(program, graph, tiles, origin, halo)
+    results = evaluate_chain_tile(program, graph, tiles, origin, halo,
+                                  core_shape=plan.block)
     core = tuple(slice(halo[d], halo[d] + plan.block[d]) for d in range(3))
     raw = program.raw_dimensions
     local_raw = tuple(plan.block[3 - len(raw) + i] for i in range(len(raw)))
@@ -183,7 +180,7 @@ def _block_origin(plan: DomainDecomposition):
 
 def _local_forward_overlap(plan: DomainDecomposition, graph: ChainGraph,
                            inputs: Dict[str, Any]) -> Dict[str, Any]:
-    """Comm/compute-overlapped per-device body (fused-XLA tile evaluator).
+    """Comm/compute-overlapped per-device body.
 
     The interior of the local block — cells at least the cumulative halo
     away from every sharded block edge — depends only on local data, so it
@@ -197,12 +194,12 @@ def _local_forward_overlap(plan: DomainDecomposition, graph: ChainGraph,
 
     Overcompute vs the blocking body: the interior pass wastes its rim
     (2h/B per sharded dim) and each face re-evaluates a 3h slab — worth it
-    when ICI latency is exposed, which only a real multi-chip profile can
+    when exchange latency is exposed, which only a multi-device profile can
     decide; hence opt-in (``comm_overlap=True``).
 
     The reference has no analogue (its SMI FIFO streams overlap by
     construction, /root/reference/stencilflow/sdfg_generator.py:848-963);
-    this is the TPU-idiomatic equivalent of that elastic overlap for the
+    this is the equivalent of that elastic overlap for the
     lockstep-collective halo exchange.
     """
     program = plan.program
@@ -215,7 +212,7 @@ def _local_forward_overlap(plan: DomainDecomposition, graph: ChainGraph,
     # unsharded dims keep the single-chip invariant (wraps land on
     # globally-OOB cells that the BC masks fix).
     outs = dict(evaluate_chain_tile(program, graph, dict(inputs), origin,
-                                    (0, 0, 0)))
+                                    (0, 0, 0), core_shape=B))
 
     # widened arrays for the strips (the data the interior did not wait on)
     tiles_w, _ = _widen_and_origin(plan, inputs)
@@ -237,7 +234,10 @@ def _local_forward_overlap(plan: DomainDecomposition, graph: ChainGraph,
             so = list(origin)
             if side == 1:
                 so[d] = so[d] + jnp.int32(B[d] - h)
-            res = evaluate_chain_tile(program, graph, strip_tiles, so, halo)
+            res = evaluate_chain_tile(
+                program, graph, strip_tiles, so, halo,
+                core_shape=tuple(h if dd == d else B[dd]
+                                 for dd in range(3)))
             for n, arr in res.items():
                 core = [slice(halo[dd], halo[dd] + B[dd]) for dd in range(3)]
                 core[d] = slice(h, 2 * h)
@@ -250,465 +250,36 @@ def _local_forward_overlap(plan: DomainDecomposition, graph: ChainGraph,
     return {n: arr.reshape(local_raw) for n, arr in outs.items()}
 
 
-def _local_forward_stream_overlap(plan: DomainDecomposition,
-                                  interior, strip,
-                                  inputs: Dict[str, Any],
-                                  pools: Dict[str, Any]) -> Dict[str, Any]:
-    """Comm/compute-overlapped per-device body, streaming Pallas kernels
-    (i-sharding only).  ``interior``/``strip`` are ``(stream_fn,
-    extra_j_pad)`` pairs: the interior kernel covers local output planes
-    [h, B0-h) reading only the raw local block (independent of the
-    exchange), the strip kernel covers h output planes from a 3h-plane
-    input slab of the widened array and runs twice (lo/hi faces).  Pool
-    entries are prefixed "i$"/"s$" per kernel."""
-    program = plan.program
-    h = plan.halo[0]
-    B0 = plan.block[0]
-    (int_fn, int_pad), (strip_fn, strip_pad) = interior, strip
-    pools_i = {k[2:]: v for k, v in pools.items() if k.startswith("i$")}
-    pools_s = {k[2:]: v for k, v in pools.items() if k.startswith("s$")}
-    start = _block_origin(plan)[0]
-
-    def run(fn, pad, tiles, origin0):
-        tiles = pad_j_tiles(program, tiles, pad)
-        return fn(jnp.stack([origin0, jnp.int32(0), jnp.int32(0)]),
-                  tiles, pools_i if fn is int_fn else pools_s)
-
-    # interior: raw local block IS the widened input of the (B0-2h)-plane
-    # core (core [start+h, start+B0-h) reads planes [start, start+B0))
-    res_int = run(int_fn, int_pad, dict(inputs), start)
-
-    # strips read from the i-widened exchange
-    tiles_w, _ = _widen_and_origin(plan, inputs)
-
-    def i_slab(lo):
-        out = {}
-        for name, spec in program.inputs.items():
-            arr = tiles_w[name]
-            if spec.is_scalar or not spec.dim_mask[0]:
-                out[name] = arr
-            else:
-                out[name] = lax.slice_in_dim(arr, lo, lo + 3 * h, axis=0)
-        return out
-
-    res_lo = run(strip_fn, strip_pad, i_slab(0), start - h)
-    res_hi = run(strip_fn, strip_pad, i_slab(B0 - h), start + B0 - 2 * h)
-
-    raw = program.raw_dimensions
-    local_raw = tuple(plan.block[3 - len(raw) + i] for i in range(len(raw)))
-    outs = {}
-    for n in res_int:
-        parts = [res_lo[n].reshape((h,) + plan.block[1:]),
-                 res_int[n].reshape((B0 - 2 * h,) + plan.block[1:]),
-                 res_hi[n].reshape((h,) + plan.block[1:])]
-        outs[n] = jnp.concatenate(parts, axis=0).reshape(local_raw)
-    return outs
-
-
-def pad_j_tiles(program: ir.Program, tiles: Dict[str, Any],
-                extra_j_pad: int) -> Dict[str, Any]:
-    """Widen every j-spanning input by ``extra_j_pad`` rows on both sides
-    (margins per-block j-tiling needs beyond what the halo exchange or
-    host slicing provided).  Shared by the shard_map bodies and the
-    out-of-core chunk bodies."""
-    if not extra_j_pad:
-        return tiles
-    tiles = dict(tiles)
-    for name, spec in program.inputs.items():
-        if spec.is_scalar or not spec.dim_mask[1]:
-            continue
-        pos = sum(spec.dim_mask[:1])
-        pad = [(0, 0)] * tiles[name].ndim
-        pad[pos] = (extra_j_pad, extra_j_pad)
-        tiles[name] = jnp.pad(tiles[name], pad)
-    return tiles
-
-
-def _local_forward_stream(plan: DomainDecomposition, stream_fn,
-                          extra_j_pad: int,
-                          inputs: Dict[str, Any],
-                          pools: Dict[str, Any]) -> Dict[str, Any]:
-    """Per-device body: halo exchange, then the streaming Pallas kernel
-    (origin shifted back by the i-halo: local plane g is global i =
-    origin + g).  ``extra_j_pad`` widens the local j extent when per-shard
-    j-tiling needs margins the mesh exchange did not provide.  ``pools``
-    are this shard's slices of the MXU band matrices / corrections
-    (empty dict when the MXU lowering is off)."""
-    program = plan.program
-    tiles, origin = _widen_and_origin(plan, inputs,
-                                      i_origin_shift=plan.halo[0])
-    tiles = pad_j_tiles(program, tiles, extra_j_pad)
-    results = stream_fn(jnp.stack(origin), tiles, pools)
-    raw = program.raw_dimensions
-    local_raw = tuple(plan.block[3 - len(raw) + i] for i in range(len(raw)))
-    return {n: arr.reshape(local_raw) for n, arr in results.items()}
-
-
-def _sharded_mxu_assets(program: ir.Program, analysis: ChainAnalysis,
-                        splan, plan: DomainDecomposition, jtiles: int,
-                        mxu_min_footprint: int, mxu_precision: str,
-                        _composed=None):
-    """MXU band-matmul assets for the sharded streaming kernel.
-
-    Band matrices and corrections are origin-aware per (shard, j-tile)
-    instance: L stacks over the j instances, R over the k shards,
-    corrections over their cross product.  The stacks are returned as
-    GLOBAL arrays with mesh PartitionSpecs — each device receives exactly
-    its slices through shard_map.  Returns (local_assets, global_arrays,
-    pspecs, resident_vmem_bytes), or None when no stage is eligible.
-    """
-    from ..backend.linear import (MatrixPool, is_stacked_key,
-                                  plan_all_stages)
-    mesh = plan.mesh
-    ax_j, ax_k = plan.dim_axes[1], plan.dim_axes[2]
-    n_j = mesh.shape[ax_j] if ax_j is not None else 1
-    n_k = mesh.shape[ax_k] if ax_k is not None else 1
-    Bj, Bk = plan.block[1], plan.block[2]
-    pj, pk = splan.plane
-    hjp, hkp = splan.halo_jk
-    core_j = pj - 2 * hjp
-    dims = program.dimensions
-    global_plane = (n_j == 1 and n_k == 1 and jtiles == 1
-                    and hjp == 0 and hkp == 0)
-    if global_plane:    # i-only sharding: plane == global domain
-        j_ctx = k_ctx = None
-    else:
-        j_ctx = [s * Bj - hjp + jt * core_j
-                 for s in range(n_j) for jt in range(jtiles)]
-        k_ctx = [s * Bk - hkp for s in range(n_k)]
-
-    pool = MatrixPool()
-    plans = plan_all_stages(program, (pj, pk), dims, pool,
-                            mxu_min_footprint, j_ctx, k_ctx,
-                            exclude=tuple(_composed or ()))
-    for cname, build in (_composed or {}).items():
-        from ..backend.compose import plan_composed
-        cp = plan_composed(build, (pj, pk), dims, pool, j_ctx, k_ctx)
-        if cp is None:
-            return None      # caller raises on the composed path
-        plans[cname] = cp
-    if not plans:
-        return None
-
-    from ..backend.linear import finalize_pool
-    pkeys, parrs, pmeta, tkeys = finalize_pool(plans, pool, program,
-                                               mxu_precision)
-
-    global_arrays: Dict[str, Any] = {}
-    pspecs: Dict[str, P] = {}
-    local_shapes: Dict[str, tuple] = {}
-    resident = sum(splan.ring[f] * pj * pk * 4 for (f, _l, _r) in tkeys)
-    for k, a in zip(pkeys, parrs):
-        if is_stacked_key(k):
-            if k.startswith("Ls_"):
-                global_arrays[k] = a.reshape((n_j, jtiles) + a.shape[1:])
-                pspecs[k] = P(ax_j)
-                local_shapes[k] = (jtiles,) + a.shape[1:]
-            elif k.startswith("Rs_"):
-                global_arrays[k] = a
-                pspecs[k] = P(ax_k)
-                local_shapes[k] = (1,) + a.shape[1:]
-            else:   # corrs: (n_j*jtiles*n_k, pj, pk), j-major cross product
-                g = a.reshape((n_j, jtiles, n_k) + a.shape[1:])
-                global_arrays[k] = np.ascontiguousarray(
-                    g.transpose(0, 2, 1, 3, 4))
-                pspecs[k] = P(ax_j, ax_k)
-                local_shapes[k] = (jtiles,) + a.shape[1:]
-            resident += int(np.prod(a.shape[1:])) * a.dtype.itemsize
-        else:
-            global_arrays[k] = a
-            pspecs[k] = P()
-            local_shapes[k] = a.shape
-            resident += a.nbytes
-    local_assets = {"plans": plans, "pool_keys": pkeys,
-                    "pool_meta": pmeta, "transform_keys": tkeys,
-                    "local_shapes": local_shapes}
-    return local_assets, global_arrays, pspecs, resident
-
-
-def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
-                      plan: DomainDecomposition,
-                      interpret: bool = False,
-                      mxu: str = "auto",
-                      mxu_min_footprint: int = 12,
-                      mxu_precision: str = "split",
-                      spill: str = "auto",
-                      vmem_budget: int = config.TPU_STREAM_VMEM_BUDGET,
-                      ring_storage: str = "off",
-                      _composed=None):
-    """Choose and compile the per-block streaming kernel for a local block
-    of ``plan.block`` with halo ``plan.halo``.
-
-    Candidate order: untiled (+MXU), j-tiled (+MXU), untiled VPU, j-tiled
-    VPU, HBM ring spill.  Returns ``(stream_fn, extra_j_pad, pool_globals,
-    pool_pspecs, config_dict)`` or None when nothing fits the VMEM budget
-    (callers fall back to the fused-XLA tile body).  Shared by the
-    mesh-sharded path (shard_map bodies) and the out-of-core host-chunk
-    path (``plan`` may then carry ``mesh=None`` with all dim_axes None).
-    """
-    from ..backend.stream import (StreamPlan, choose_spill,
-                                  compile_local_stream, jtile_splits)
-    from ..backend.tile_eval import reject_unsupported_mosaic
-    try:
-        # same Mosaic scope gates as the single-chip stream lowering
-        # (narrow-int packed layouts at unaligned planes): None -> the
-        # caller's fused-XLA tile body.  bool i-history is in scope
-        # since round 5 (0/1 int32 ring wire in the shared stream
-        # machinery, `!= 0` at read exit)
-        reject_unsupported_mosaic(program, interpret, bool_ihistory_ok=True)
-    except ValueError:
-        return None
-    halo_i = plan.halo[0]
-    hjt = chain_halo(analysis)[1]
-    budget = 0.7 * vmem_budget
-    Bj = plan.block[1]
-    # candidates: (jtiles, local_jk, halo_jk, extra_j_pad); j-tiles
-    # use overlapped windows widened by the chain's j-halo, padded
-    # locally if the mesh exchange did not already provide the margin
-    cands = [(1, (plan.block[1], plan.block[2]),
-              (plan.halo[1], plan.halo[2]), 0)]
-    hjt_pad, splits = jtile_splits(Bj, hjt)
-    cands += [(tiles, (tj, plan.block[2]), (hjt_pad, plan.halo[2]),
-               max(0, hjt_pad - plan.halo[1]))
-              for tiles, tj in splits]
-    chosen = None
-    # a composed program MUST run its composed stages through their
-    # exact ComposedPlans (the rewritten IR is interior-only): MXU leg
-    # only, no spill rung — failures raise so the caller retries
-    # uncomposed (mirrors compile_chain_stream)
-    mxu_legs = ([True] if _composed else
-                [True, False] if mxu != "off" else [False])
-    for use_mxu in mxu_legs:
-        for nt, ljk, hjk, pad in cands:
-            trial = StreamPlan.build(analysis, local_jk=ljk,
-                                     halo_jk=hjk, min_lag_max=halo_i,
-                                     direct_emit=halo_i == 0)
-            tb = trial.vmem_bytes(program,
-                                  ring_storage=ring_storage) + \
-                trial.io_window_bytes(program)
-            assets = None
-            if use_mxu:
-                a = _sharded_mxu_assets(program, analysis, trial, plan,
-                                        nt, mxu_min_footprint,
-                                        mxu_precision,
-                                        _composed=_composed)
-                if a is None:
-                    if _composed:
-                        raise ValueError(
-                            "composed segments not MXU-plannable on "
-                            "this decomposition")
-                    break   # no eligible stage: same as the VPU pass
-                assets, globals_, pspecs_, extra = a
-                tb += extra
-            else:
-                globals_, pspecs_ = {}, {}
-            if tb <= budget:
-                chosen = (nt, hjk, pad, trial, assets, globals_,
-                          pspecs_, None)
-                break
-        if chosen is not None:
-            break
-    if chosen is None and _composed:
-        raise ValueError("composed sharded plan exceeds the VMEM budget")
-    if chosen is None and spill != "off":
-        # spill rescue: keep untiled shard planes, move the deepest
-        # rings to HBM circular buffers (backend/stream.py).  Output
-        # rings must stay in VMEM when they emit through the ring
-        # (i-sharded, halo_i > 0).
-        trial = StreamPlan.build(
-            analysis, local_jk=(plan.block[1], plan.block[2]),
-            halo_jk=(plan.halo[1], plan.halo[2]),
-            min_lag_max=halo_i, direct_emit=halo_i == 0)
-        sel = choose_spill(program, analysis, trial,
-                           budget - trial.io_window_bytes(program),
-                           allow_outputs=halo_i == 0,
-                           ring_storage=ring_storage)
-        if sel is not None:
-            chosen = (1, (plan.halo[1], plan.halo[2]), 0, trial,
-                      None, {}, {}, sel[0])
-    if chosen is None:
-        return None
-    jtiles, _hjk, extra_j_pad, splan, assets, pool_globals, \
-        pool_pspecs, spill_sel = chosen
-    stream_fn = compile_local_stream(program, analysis, splan,
-                                     plan.block,
-                                     interpret=interpret,
-                                     vmem_budget=vmem_budget,
-                                     halo_i=halo_i,
-                                     jtiles=jtiles,
-                                     mxu_assets=assets,
-                                     spill_reads=spill_sel,
-                                     ring_storage=ring_storage)
-    cfg = {
-        "backend": "stream",
-        "jtiles": jtiles,
-        "mxu_stages": sorted(assets["plans"]) if assets else [],
-        "spilled": sorted(spill_sel) if spill_sel else [],
-    }
-    return stream_fn, extra_j_pad, pool_globals, pool_pspecs, cfg
-
-
 def compile_sharded_chain(program: ir.Program, mesh: Mesh,
                           dim_axes: Sequence[Optional[str]],
                           analysis: Optional[ChainAnalysis] = None,
-                          local_backend: str = "auto",
-                          interpret: bool = False,
-                          mxu: str = "auto",
-                          mxu_min_footprint: int = 12,
-                          mxu_precision: str = "split",
-                          spill: str = "auto",
-                          vmem_budget: int = config.TPU_STREAM_VMEM_BUDGET,
-                          comm_overlap: bool = False,
-                          ring_storage: str = "off",
-                          compose: str = "auto",
-                          _composed=None):
-    """Build a jitted, mesh-sharded ``fn(inputs) -> outputs`` for the chain.
-
-    ``local_backend``: per-shard compute path — "stream" (the streaming
-    Pallas kernel, the production TPU path; any subset of (i, j, k) may be
-    sharded), "xla" (fused-XLA tile evaluation, runs anywhere), or
-    "auto".  Inputs must be committed with ``plan.input_shardings()`` (or
-    will be resharded on entry).  Returns ``(fn, plan)``.
-
-    ``mxu="auto"`` lowers wide affine stages to banded matmuls inside the
-    per-shard streaming kernel, with origin-aware per-shard band matrices
-    delivered through shard_map (sharded leading dims); configurations
-    are preferred untiled+MXU > j-tiled+MXU > untiled VPU > j-tiled VPU.
+                          comm_overlap: bool = False):
+    """Build a jitted, mesh-sharded ``fn(inputs) -> outputs`` for the chain:
+    halo exchange, then the fused tile evaluator on each device's widened
+    block (any subset of (i, j, k) may be sharded).  Inputs must be
+    committed with ``plan.input_shardings()`` (or will be resharded on
+    entry).  Returns ``(fn, plan)``.
 
     ``comm_overlap=True`` restructures the per-device body so the block
     interior is evaluated with no data dependency on the halo ppermutes
     (XLA can keep them in flight behind it) and only thin boundary strips
-    wait for neighbor slabs — at the cost of rim/strip overcompute.  The
-    streaming backend supports it for i-only sharding; any-dim sharding is
-    supported through the fused-XLA body.  Opt-in: whether latency hiding
-    beats the overcompute is a per-topology measurement.
+    wait for neighbor slabs — at the cost of rim/strip overcompute.
+    Opt-in: whether latency hiding beats the overcompute is a measurement
+    per mesh.
     """
     analysis = analysis or ChainAnalysis.run(program)
     plan = DomainDecomposition.plan(program, mesh, dim_axes, analysis)
-    graph = analysis.graph
     in_specs = {n: plan.spec_for_input(n) for n in program.inputs}
     out_specs = {n: plan.spec_for_output() for n in program.outputs}
-
-    if local_backend == "auto":
-        on_cpu = jax.devices()[0].platform == "cpu"
-        local_backend = "xla" if (interpret or on_cpu) else "stream"
     if comm_overlap and not any(h > 0 for h in plan.halo):
         comm_overlap = False    # no exchange to hide
-
-    # affine-run composition on the sharded path: the composed SMEM
-    # table is indexed by the GLOBAL plane (the kernel globalizes via
-    # origin[0] + q, so i-sharded decompositions compose too); per-shard
-    # j/k windows come from plan_composed's origin contexts.  The
-    # composed program re-enters this compiler; any planning failure
-    # falls back to the uncomposed program below.
-    if (_composed is None and compose != "off" and mxu != "off"
-            and local_backend == "stream" and not comm_overlap):
-        from ..backend.compose import compose_program
-        max_t = int(compose) if compose not in ("auto",) else 0
-        got = (compose_program(program, analysis, max_t)
-               if max_t >= 0 else None)
-        if got is not None:
-            program2, builds = got
-            try:
-                fn2, plan2 = compile_sharded_chain(
-                    program2, mesh, dim_axes, None, "stream", interpret,
-                    mxu, mxu_min_footprint, mxu_precision, spill,
-                    vmem_budget, comm_overlap, ring_storage,
-                    compose="off", _composed=builds)
-                compile_sharded_chain.last_config["composed"] = {
-                    name: list(b.stages) for name, b in builds.items()}
-                # the caller shards inputs/outputs by the ORIGINAL
-                # program's field names; composition preserves inputs
-                # and outputs, so plan2's shardings apply directly
-                return fn2, plan2
-            except (ValueError, NotImplementedError):
-                pass
-    compile_sharded_chain.last_config = {"backend": local_backend,
-                                         "jtiles": 0, "mxu_stages": [],
-                                         "comm_overlap": comm_overlap}
-    pool_globals: Dict[str, Any] = {}
-    pool_pspecs: Dict[str, P] = {}
-    if local_backend == "stream" and comm_overlap:
-        if plan.halo[1] or plan.halo[2]:
-            raise ValueError(
-                "comm_overlap with the streaming local backend supports "
-                "i-only sharding; use local_backend='xla' for j/k-sharded "
-                "overlap, or comm_overlap=False")
-        h, B0 = plan.halo[0], plan.block[0]
-        if B0 <= 2 * h:
-            raise ValueError(
-                f"comm_overlap needs an interior: local i-block {B0} must "
-                f"exceed twice the halo {h} (use fewer shards)")
-        got_i = plan_local_stream(
-            program, analysis,
-            dataclasses.replace(plan, block=(B0 - 2 * h,) + plan.block[1:]),
-            interpret=interpret, mxu=mxu,
-            mxu_min_footprint=mxu_min_footprint,
-            mxu_precision=mxu_precision, spill=spill,
-            vmem_budget=vmem_budget, ring_storage=ring_storage)
-        got_s = plan_local_stream(
-            program, analysis,
-            dataclasses.replace(plan, block=(h,) + plan.block[1:]),
-            interpret=interpret, mxu=mxu,
-            mxu_min_footprint=mxu_min_footprint,
-            mxu_precision=mxu_precision, spill=spill,
-            vmem_budget=vmem_budget, ring_storage=ring_storage)
-        if got_i is None or got_s is None:
-            local_backend = "xla"   # fall through to the tile-eval overlap
-        else:
-            int_fn, int_pad, pool_i, pspec_i, cfg = got_i
-            strip_fn, strip_pad, pool_s, pspec_s, cfg_s = got_s
-            pool_globals = {**{"i$" + k: v for k, v in pool_i.items()},
-                            **{"s$" + k: v for k, v in pool_s.items()}}
-            pool_pspecs = {**{"i$" + k: v for k, v in pspec_i.items()},
-                           **{"s$" + k: v for k, v in pspec_s.items()}}
-            body = functools.partial(_local_forward_stream_overlap, plan,
-                                     (int_fn, int_pad),
-                                     (strip_fn, strip_pad))
-            cfg = dict(cfg, comm_overlap=True,
-                       strip_jtiles=cfg_s.get("jtiles", 0))
-            compile_sharded_chain.last_config = cfg
-    elif local_backend == "stream":
-        got = plan_local_stream(program, analysis, plan,
-                                interpret=interpret, mxu=mxu,
-                                mxu_min_footprint=mxu_min_footprint,
-                                mxu_precision=mxu_precision, spill=spill,
-                                vmem_budget=vmem_budget,
-                                ring_storage=ring_storage,
-                                _composed=_composed)
-        if got is None:
-            # nothing fits: fused-XLA local body rather than failing deep
-            # inside the Mosaic compiler
-            body = functools.partial(_local_forward, plan, graph)
-            local_backend = "xla"
-            compile_sharded_chain.last_config = {
-                "backend": "xla", "jtiles": 0, "mxu_stages": [],
-                "comm_overlap": False}
-        else:
-            stream_fn, extra_j_pad, pool_globals, pool_pspecs, cfg = got
-            body = functools.partial(_local_forward_stream, plan,
-                                     stream_fn, extra_j_pad)
-            compile_sharded_chain.last_config = dict(cfg,
-                                                     comm_overlap=False)
-    if local_backend != "stream":
-        body = functools.partial(
-            _local_forward_overlap if comm_overlap else _local_forward,
-            plan, graph)
-        compile_sharded_chain.last_config = {
-            "backend": "xla", "jtiles": 0, "mxu_stages": [],
-            "comm_overlap": comm_overlap}
-        sm = shard_map(body, mesh=mesh, in_specs=(in_specs,),
-                       out_specs=out_specs, check_vma=False)
-        return jax.jit(sm), plan
-
-    sm = shard_map(body, mesh=mesh, in_specs=(in_specs, pool_pspecs),
+    compile_sharded_chain.last_config = {"comm_overlap": comm_overlap}
+    body = functools.partial(
+        _local_forward_overlap if comm_overlap else _local_forward,
+        plan, analysis.graph)
+    sm = shard_map(body, mesh=mesh, in_specs=(in_specs,),
                    out_specs=out_specs, check_vma=False)
-    pool_consts = {k: jnp.asarray(v) for k, v in pool_globals.items()}
-
-    def fn(inputs):
-        return sm(inputs, pool_consts)
-
-    return jax.jit(fn), plan
+    return jax.jit(sm), plan
 
 
 def place_global_inputs(program: ir.Program,

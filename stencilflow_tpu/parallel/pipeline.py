@@ -2,18 +2,18 @@
 
 The reference cuts the FPGA pipeline at a stream and bridges the halves with
 SMI remote FIFOs (/root/reference/stencilflow/sdfg_generator.py:782-1000),
-with elastic FIFOs absorbing skew.  ICI collectives are lockstep, so the TPU
-mapping is a *wavefront pipeline*: the domain is chunked along the outermost
+with elastic FIFOs absorbing skew.  Collectives are lockstep, so the mapping
+here is a *wavefront pipeline*: the domain is chunked along the outermost
 dim, device ``s`` owns the ``s``-th contiguous segment of the kernel DAG, and
 at pipeline step ``t`` device ``s`` processes chunk ``t - s`` — intermediate
-tiles hop to the next device over ICI (`lax.ppermute`) after every step, so
-all segments compute concurrently on different chunks (the gearbox concept of
-the reference maps to chunking the stream into ICI-efficient tiles).
+tiles hop to the next device (`lax.ppermute`) after every step, so all
+segments compute concurrently on different chunks (the gearbox concept of the
+reference maps to chunking the stream into tiles).
 
 Chunks are widened by the chain's cumulative halo so each segment's stencil
 reads stay local; program inputs are replicated and sliced on demand.  This
-mode exists for parity and for chains too deep to fit one chip's VMEM —
-domain decomposition (domain.py) is the preferred mapping otherwise.
+mode exists for parity and for chains whose intermediates do not fit one
+device — domain decomposition (domain.py) is the preferred mapping otherwise.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from .. import config, ir
+from .. import ir
 from ..frontend.analysis import ChainAnalysis
 from ..frontend.chain import ChainGraph
 from ..backend.xla import chain_halo
@@ -139,7 +139,7 @@ def validate_segments(graph: ChainGraph,
 def optimize_split(program: ir.Program, graph: ChainGraph,
                    num_segments: int) -> Tuple[List[List[str]], Dict]:
     """Search contiguous cuts for the best pipeline partition: minimize
-    the bottleneck segment's compute load (weighted ops/cell), breaking
+    the bottleneck segment's compute load (ops/cell), breaking
     ties on inter-device stream traffic (bytes/cell crossing the cuts).
     This is the role the reference's ``enumerate_cuts`` search serves for
     its multi-FPGA partitioning (kernel_chain_graph.py:116-160); for the
@@ -152,16 +152,15 @@ def optimize_split(program: ir.Program, graph: ChainGraph,
     crossing bytes.
     """
     from ..frontend.analysis import operation_count
-    from ..report import _OP_COST
     order = graph.kernel_order
     n = len(order)
     if num_segments > n:
         raise ValueError(f"cannot split {n} kernels into {num_segments} "
                          "segments")
-    load = []
-    for k in order:
-        ops = operation_count(program.kernels[k])
-        load.append(sum(c * _OP_COST.get(op, 1) for op, c in ops.items()))
+    # plain op counts, each op weighted 1: per-op costs on the GPU are
+    # not measured (report.py counts the same way)
+    load = [sum(operation_count(program.kernels[k]).values())
+            for k in order]
     prefix = [0]
     for v in load:
         prefix.append(prefix[-1] + v)
@@ -274,7 +273,8 @@ def _gather_axis_halo(arr, mesh_axis: str, n: int, pos: int, h: int,
                             axis=pos)
 
 
-def _segment_eval(program, graph, segment, tiles, origin, halo):
+def _segment_eval(program, graph, segment, tiles, origin, halo,
+                  core_shape):
     """Evaluate one contiguous kernel segment on a widened tile dict."""
     sub_order = [n for n in graph.order if n not in program.kernels
                  or n in segment]
@@ -283,7 +283,7 @@ def _segment_eval(program, graph, segment, tiles, origin, halo):
     proxy = dataclasses.replace(graph)
     proxy.order = sub_order
     return evaluate_chain_tile(program, proxy, tiles, origin, halo,
-                               keep=segment)
+                               keep=segment, core_shape=core_shape)
 
 
 def _segment_program(program: ir.Program, graph: ChainGraph,
@@ -320,90 +320,7 @@ def _segment_program(program: ir.Program, graph: ChainGraph,
                                inputs=inputs, outputs=outs, kernels=kernels)
 
 
-def _segment_stream_fns(program: ir.Program, graph: ChainGraph,
-                        segments: List[List[str]], halo: Vec3, chunk: int,
-                        interpret: bool, mxu: str, mxu_min_footprint: int,
-                        mxu_precision: str,
-                        vmem_budget: int = config.TPU_STREAM_VMEM_BUDGET,
-                        _composed=None):
-    """Per-segment streaming Pallas kernels over the widened chunk tile,
-    or None when any segment's rings exceed the VMEM budget (callers fall
-    back to the fused-XLA segment evaluator).
-
-    The widened tile's j/k origins are FIXED (-halo), so MXU band
-    matrices need only a single context — they ship replicated as plain
-    arrays."""
-    from ..backend.stream import (StreamPlan, choose_spill,
-                                  compile_local_stream)
-    from ..backend.linear import (MatrixPool, assets_extra_vmem,
-                                  finalize_pool, plan_all_stages)
-    dims = program.dimensions
-    widened = (chunk + 2 * halo[0], dims[1] + 2 * halo[1],
-               dims[2] + 2 * halo[2])
-    fns = []
-    for seg_idx, segment in enumerate(segments):
-        later: Set[str] = {k for s in segments[seg_idx + 1:] for k in s}
-        subp = _segment_program(program, graph, segment, seg_idx, later)
-        suba = ChainAnalysis.run(subp)
-        splan = StreamPlan.build(suba, local_jk=(widened[1], widened[2]),
-                                 halo_jk=(0, 0))
-        # budget rings + the Pallas pipeline's double-buffered IO windows
-        # (dominant at large planes) like every other stream caller
-        io_bytes = splan.io_window_bytes(subp)
-        total = splan.vmem_bytes(subp) + io_bytes
-        assets = None
-        pools: Dict[str, Any] = {}
-        if mxu != "off":
-            pool = MatrixPool()
-            j_ctx = [-halo[1]] if halo[1] else None
-            k_ctx = [-halo[2]] if halo[2] else None
-            seg_composed = {n: b for n, b in (_composed or {}).items()
-                            if n in set(segment)}
-            plans = plan_all_stages(subp, (widened[1], widened[2]), dims,
-                                    pool, mxu_min_footprint, j_ctx, k_ctx,
-                                    exclude=tuple(seg_composed))
-            for cname, build in seg_composed.items():
-                from ..backend.compose import plan_composed
-                cp = plan_composed(build, (widened[1], widened[2]), dims,
-                                   pool, j_ctx, k_ctx)
-                if cp is None:
-                    return None   # caller retries uncomposed
-                plans[cname] = cp
-            if plans:
-                pkeys, parrs, pmeta, tkeys = finalize_pool(
-                    plans, pool, subp, mxu_precision)
-                extra = assets_extra_vmem(splan, tkeys, pkeys, parrs)
-                if total + extra <= 0.7 * vmem_budget:
-                    total += extra
-                    assets = {"plans": plans, "pool_keys": pkeys,
-                              "pool_meta": pmeta, "transform_keys": tkeys,
-                              "local_shapes": {k: a.shape for k, a in
-                                               zip(pkeys, parrs)}}
-                    pools = {k: jnp.asarray(a)
-                             for k, a in zip(pkeys, parrs)}
-        spill_sel: Optional[Dict[str, Tuple[int, ...]]] = None
-        if total > 0.7 * vmem_budget:
-            # segment rings exceed VMEM: spill the deepest rings to HBM
-            # (drops the MXU assets; the VPU path stays correct); the IO
-            # windows stay resident, so they come off the spill budget
-            sel = choose_spill(subp, suba, splan,
-                               0.7 * vmem_budget - io_bytes)
-            if sel is None:
-                return None
-            spill_sel = sel[0]
-            assets, pools = None, {}
-        fn = compile_local_stream(subp, suba, splan, widened,
-                                  interpret=interpret,
-                                  vmem_budget=vmem_budget,
-                                  halo_i=0, jtiles=1, mxu_assets=assets,
-                                  spill_reads=spill_sel)
-        fns.append((subp, fn, pools, {
-            "mxu_stages": sorted(assets["plans"]) if assets else [],
-            "spilled": sorted(spill_sel) if spill_sel else []}))
-    return fns
-
-
-def _pipeline_body(plan: PipelineSplit, graph: ChainGraph, seg_fns,
+def _pipeline_body(plan: PipelineSplit, graph: ChainGraph,
                    inputs: Dict[str, Any]) -> Dict[str, Any]:
     program = plan.program
     S = len(plan.segments)
@@ -441,7 +358,7 @@ def _pipeline_body(plan: PipelineSplit, graph: ChainGraph, seg_fns,
                 sizes.append(dims[d] + 2 * halo[d])
         return lax.dynamic_slice(arr, starts, sizes)
 
-    # Carried tile: only the INTERFACE fields hop over ICI — kernels read
+    # Carried tile: only the INTERFACE fields hop devices — kernels read
     # by a later segment, plus program outputs produced before the last
     # segment (they must reach the writing device).  Intra-segment
     # temporaries never leave their device (the reference's cut-stream
@@ -468,16 +385,8 @@ def _pipeline_body(plan: PipelineSplit, graph: ChainGraph, seg_fns,
     for seg_idx, segment in enumerate(plan.segments):
         def branch(args, segment=segment, seg_idx=seg_idx):
             tiles, origin = args
-            if seg_fns is not None:
-                # streaming Pallas kernel over the widened chunk tile;
-                # the tile origin shifts back by the halo in every dim
-                subp, fn, pools = seg_fns[seg_idx][:3]
-                o = jnp.stack([jnp.int32(origin[0]) - jnp.int32(halo[0]),
-                               jnp.int32(-halo[1]), jnp.int32(-halo[2])])
-                res = fn(o, {n: tiles[n] for n in subp.inputs}, pools)
-            else:
-                res = _segment_eval(program, graph, segment, tiles,
-                                    origin, halo)
+            res = _segment_eval(program, graph, segment, tiles, origin,
+                                halo, (plan.chunk, dims[1], dims[2]))
             new = dict(tiles)
             new.update(res)
             return {k: new[k] for k in carried}
@@ -510,7 +419,7 @@ def _pipeline_body(plan: PipelineSplit, graph: ChainGraph, seg_fns,
         is_last = (s == S - 1) & valid
         outputs = lax.cond(is_last, write, lambda o: o, outputs)
 
-        # hop tiles to the next stage over ICI
+        # hop tiles to the next stage
         perm = [(p, p + 1) for p in range(S - 1)]
         next_tiles = {k: lax.ppermute(v, plan.axis, perm)
                       for k, v in new_tiles.items()}
@@ -527,7 +436,7 @@ def _pipeline_body(plan: PipelineSplit, graph: ChainGraph, seg_fns,
     return {k: v.reshape(raw) for k, v in outputs.items()}
 
 
-def _pipeline_body_sharded(plan: PipelineSplit, graph: ChainGraph, seg_fns,
+def _pipeline_body_sharded(plan: PipelineSplit, graph: ChainGraph,
                            inputs: Dict[str, Any]) -> Dict[str, Any]:
     """Memory-scalable wavefront: every per-device buffer is O(N/S).
 
@@ -683,15 +592,8 @@ def _pipeline_body_sharded(plan: PipelineSplit, graph: ChainGraph, seg_fns,
             if seg_idx > 0:
                 for i, f in enumerate(cut_layouts[seg_idx - 1]):
                     tiles[f] = stack[i].astype(program.kernels[f].dtype)
-            if seg_fns is not None:
-                subp, fn, pools = seg_fns[seg_idx][:3]
-                o = jnp.stack([jnp.int32(origin[0]) - jnp.int32(halo[0]),
-                               jnp.int32(origin[1]) - jnp.int32(halo[1]),
-                               jnp.int32(origin[2]) - jnp.int32(halo[2])])
-                res = fn(o, {n: tiles[n] for n in subp.inputs}, pools)
-            else:
-                res = _segment_eval(program, graph, segment, tiles,
-                                    origin, halo)
+            res = _segment_eval(program, graph, segment, tiles, origin,
+                                halo, (chunk, loc[1], loc[2]))
             new = dict(tiles)
             new.update(res)
             out_layout = (cut_layouts[seg_idx] if seg_idx < S - 1 else [])
@@ -769,37 +671,25 @@ def _pipeline_body_sharded(plan: PipelineSplit, graph: ChainGraph, seg_fns,
 def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
                            num_chunks: Optional[int] = None,
                            analysis: Optional[ChainAnalysis] = None,
-                           local_backend: str = "auto",
-                           interpret: bool = False,
-                           mxu: str = "auto",
-                           mxu_min_footprint: int = 12,
-                           mxu_precision: str = "split",
-                           vmem_budget: int = config.TPU_STREAM_VMEM_BUDGET,
                            split_at: Optional[Sequence[str]] = None,
                            cut: Optional[Sequence[str]] = None,
                            segments: Optional[Sequence[Sequence[str]]]
                            = None,
                            optimize_cuts: bool = False,
                            io: str = "auto",
-                           compose: str = "auto",
-                           domain_axes: Optional[Dict[int, str]] = None,
-                           _composed=None):
+                           domain_axes: Optional[Dict[int, str]] = None):
     """Jitted wavefront-pipelined chain over ``mesh.shape[axis]`` devices.
+    Each segment runs the fused tile evaluator over the widened chunk.
 
     ``io="sharded"`` (the default when the shape allows): inputs and
     outputs are i-sharded over the pipeline axis and every per-device
     buffer is O(N/S) (_pipeline_body_sharded) — the memory-scalable mode
-    that justifies pipelining chains too deep for one chip.  Requires
+    that justifies pipelining chains too deep for one device.  Requires
     ``dims[0]`` divisible by the device count, rank-3 output, and one
     dtype across cut-crossing fields (the i-halo may exceed a chunk —
     the body gathers it multi-hop).  ``io="replicated"`` keeps the
     round-1 body (replicated inputs/outputs, any chunk count, mixed
     dtypes).
-
-    ``local_backend``: per-segment compute — "stream" runs each segment as
-    a streaming Pallas kernel over the widened chunk tile (the production
-    TPU path, with the MXU lowering for wide affine stages), "xla" the
-    fused tile evaluator (runs anywhere), "auto" picks by platform.
 
     Partition selection (at most one): ``split_at`` cuts after named
     kernels in the global topological order; ``cut`` realizes ONE
@@ -810,13 +700,12 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
     Returns ``(fn, plan)``.
 
     ``domain_axes`` composes the pipeline with DOMAIN DECOMPOSITION on a
-    multi-dim mesh (VERDICT r4 #4 — the pod-scale story for chains both
-    deep and large): ``{1: "x"}`` shards j (and/or ``{2: "y"}`` k) over
-    further mesh axes, so each pipeline segment runs on an O(N/(S*X))
-    subdomain with per-segment halo gathered from domain neighbors while
-    wavefront chunks ride the pipeline axis.  Requires sharded io and a
-    domain extent divisible by the axis size; the local backend is the
-    fused tile evaluator (``xla``) — the reference's analogue scales
+    multi-dim mesh (the story for chains both deep and large):
+    ``{1: "x"}`` shards j (and/or ``{2: "y"}`` k) over further mesh axes,
+    so each pipeline segment runs on an O(N/(S*X)) subdomain with
+    per-segment halo gathered from domain neighbors while wavefront
+    chunks ride the pipeline axis.  Requires sharded io and a domain
+    extent divisible by the axis size — the reference's analogue scales
     operators only, each device holding the full domain
     (/root/reference/stencilflow/sdfg_generator.py:782-1000).
     """
@@ -837,49 +726,6 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
         if io == "replicated":
             raise ValueError("domain_axes requires sharded pipeline io")
         io = "sharded"
-        if local_backend == "stream":
-            raise ValueError(
-                "domain_axes segments run the fused tile evaluator; "
-                "pass local_backend='auto' or 'xla'")
-        local_backend = "xla"
-        compose = "off"   # composed stream segments are stream-only
-
-    # affine-run composition before auto-splitting: the composed program
-    # (fewer, wider stages) is what gets cut across devices; only the
-    # AUTO split composes — explicit split_at/cut/segments name original
-    # kernels that composition would elide.  The composed program
-    # re-enters this compiler; any failure retries uncomposed (never the
-    # XLA segment body, whose composed IR is interior-only).
-    if (_composed is None and compose != "off" and mxu != "off"
-            and local_backend == "stream"
-            and split_at is None and cut is None and segments is None):
-        from ..backend.compose import compose_program
-        S0 = mesh.shape[axis]
-        if compose == "auto":
-            # cap the composition factor so the composed program keeps
-            # >= S kernels to split (a whole-run compose of an S-deep
-            # chain would leave one kernel and nothing to pipeline)
-            max_t = max(2, -(-len(program.kernels) // S0))
-        else:
-            max_t = int(compose)
-        got = (compose_program(program, analysis, max_t)
-               if max_t >= 0 else None)
-        if got is not None:
-            program2, builds = got
-            if len(got[0].kernels) >= S0:
-                try:
-                    fn2, plan2 = compile_pipeline_split(
-                        program2, mesh, axis, num_chunks, None,
-                        "stream", interpret, mxu, mxu_min_footprint,
-                        mxu_precision, vmem_budget,
-                        optimize_cuts=optimize_cuts, io=io,
-                        compose="off", _composed=builds)
-                    if compile_pipeline_split.last_config["backend"]                             == "stream":
-                        compile_pipeline_split.last_config["composed"]                             = {n: list(b.stages)
-                               for n, b in builds.items()}
-                        return fn2, plan2
-                except (ValueError, NotImplementedError):
-                    pass
 
     graph = analysis.graph
     S = mesh.shape[axis]
@@ -935,26 +781,8 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
     chunk = dims[0] // num_chunks
     plan = PipelineSplit(program, mesh, axis, segments, halo, num_chunks,
                          chunk, domain_axes=dict(domain_axes or {}))
-    if local_backend == "auto":
-        on_cpu = jax.devices()[0].platform == "cpu"
-        local_backend = "xla" if (interpret or on_cpu) else "stream"
-    seg_fns = None
-    if local_backend == "stream":
-        seg_fns = _segment_stream_fns(program, graph, segments, halo,
-                                      chunk, interpret, mxu,
-                                      mxu_min_footprint, mxu_precision,
-                                      vmem_budget=vmem_budget,
-                                      _composed=_composed)
-        # None: a segment's rings exceed VMEM — fused-XLA fallback
-        if seg_fns is None and _composed:
-            raise ValueError(
-                "composed pipeline segments not stream-plannable")
     compile_pipeline_split.last_config = {
-        "backend": "stream" if seg_fns is not None else "xla",
-        "io": "sharded" if sharded_io else "replicated",
-        "segments": [info for (_p, _f, _pl, info) in seg_fns]
-        if seg_fns is not None else [],
-    }
+        "io": "sharded" if sharded_io else "replicated"}
     if sharded_io:
         dax = dict(domain_axes or {})
         in_spec_map = {}
@@ -969,12 +797,11 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
                                            for d in spanned[1:]])
         out_specs = {n: P(axis, dax.get(1), dax.get(2))
                      for n in program.outputs}
-        body = functools.partial(_pipeline_body_sharded, plan, graph,
-                                 seg_fns)
+        body = functools.partial(_pipeline_body_sharded, plan, graph)
     else:
         in_spec_map = {n: P() for n in program.inputs}
         out_specs = {n: P() for n in program.outputs}
-        body = functools.partial(_pipeline_body, plan, graph, seg_fns)
+        body = functools.partial(_pipeline_body, plan, graph)
     compile_pipeline_split.last_config["in_specs"] = dict(in_spec_map)
     compile_pipeline_split.last_config["out_specs"] = dict(out_specs)
     fn = shard_map(body, mesh=mesh, in_specs=(in_spec_map,),

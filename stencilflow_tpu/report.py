@@ -1,19 +1,19 @@
-"""Analytic performance report: op counts, communication volume, and a TPU
-dual-roofline bound.
+"""Analytic performance report: op counts, communication volume, and a
+dual roofline against a device's published peaks.
 
 The reference reports peak/upper-bound GOp/s at an FPGA clock, runtime lower
 bound in cycles, minimum communication volume, and required bandwidth
-(/root/reference/bin/report.py:23-57, kernel_chain_graph.py:721-774).  On TPU
-the analogous model has two ceilings:
+(/root/reference/bin/report.py:23-57, kernel_chain_graph.py:721-774).  Here
+the analogous model has two ceilings, both from ``device.PEAKS``:
 
-* **HBM roofline**: minimum traffic = every input + output array moved once
-  (the reference's minimum-communication-volume model) at the chip's HBM
-  bandwidth;
-* **VPU roofline**: one elementwise op per lane per cycle over the chain's
-  per-cell op count (the analogue of the reference's ops/cycle peak model).
+* **memory roofline**: minimum traffic = every input + output array moved
+  once (the reference's minimum-communication-volume model) at the device's
+  memory bandwidth;
+* **compute roofline**: the chain's per-cell operation count at the
+  device's float32 rate.
 
-The runtime lower bound is the max of the two; deep chains are VPU-bound,
-shallow ones HBM-bound.
+The runtime lower bound is the max of the two.  Operations are plain
+counts, each weighted 1: per-op costs on the GPU are not measured.
 """
 from __future__ import annotations
 
@@ -23,72 +23,48 @@ import numpy as np
 
 from typing import Dict, Optional
 
-from . import config
+from .device import H100_SXM, Peaks, peaks_for
 from .frontend.analysis import ChainAnalysis
 from .ir import Program
-
-# per-op cost in add-equivalents — MEASURED on a v5e where noted
-# (scripts/vpu_ceiling.py, RESULTS.md round 3): div 3.9, sqrt 4.3,
-# exp 1.21 (hardware-assisted, NOT the FPGA-style 6-12x), sin 45
-# (full range reduction — far above the old guess of 8), cmp+select
-# 2.6.  Unmeasured entries are scaled from their Mosaic lowering
-# class: cos ~ sin; tan ~ sin/cos; sinh/cosh/tanh ~ exp ratios;
-# log ~ exp.
-_OP_COST = {
-    "div": 4, "sqrt": 4,                      # measured
-    "exp": 1.5,                               # measured 1.21
-    "sin": 45, "cos": 45,                     # sin measured 45
-    "tan": 90, "sinh": 4, "cosh": 4, "tanh": 3, "log": 2,  # scaled
-    "cond": 1.6,   # select pass (cmp counts separately: 2.6 total)
-}
-
-
-@dataclasses.dataclass
-class HardwareModel:
-    hbm_bandwidth: float = config.TPU_HBM_BANDWIDTH
-    vpu_elemops: float = config.TPU_VPU_ELEMOPS
-    mxu_flops: float = config.TPU_MXU_BF16_FLOPS
-    vmem_bytes: int = config.TPU_VMEM_BYTES
-    hbm_bytes: int = config.TPU_HBM_BYTES
-    name: str = "tpu-v5e"
 
 
 @dataclasses.dataclass
 class Report:
     program: Program
     analysis: ChainAnalysis
-    hw: HardwareModel
+    hw: Peaks
 
     @classmethod
     def build(cls, program: Program,
               analysis: Optional[ChainAnalysis] = None,
-              hw: Optional[HardwareModel] = None) -> "Report":
+              hw: Optional[Peaks] = None) -> "Report":
+        """``hw`` defaults to the H100 SXM row of ``device.PEAKS``."""
         return cls(program, analysis or ChainAnalysis.run(program),
-                   hw or HardwareModel())
+                   hw or peaks_for(H100_SXM))
 
     # -- model ---------------------------------------------------------------
     def ops_per_cell(self) -> float:
-        """Weighted elementwise ops per domain cell over the whole chain."""
-        total = 0.0
-        for op, (per_cell, _tot) in self.analysis.operation_counts().items():
-            total += per_cell * _OP_COST.get(op, 1)
-        return total
+        """Operations per domain cell over the whole chain (each op
+        weighted 1)."""
+        return float(sum(per_cell for per_cell, _tot in
+                         self.analysis.operation_counts().values()))
 
     def total_ops(self) -> float:
         return self.ops_per_cell() * self.program.total_elements
 
     def hbm_footprint_bytes(self) -> int:
         """Device-resident bytes of an in-core run: every input + output
-        array (intermediates stream through VMEM, never HBM)."""
+        array."""
         return self.analysis.minimum_communication_volume()
 
     def suggested_host_chunks(self) -> int:
-        """1 when the in-core footprint fits HBM (with 25% headroom for
-        XLA temporaries), else the smallest power-of-two i-chunk count
-        that brings the per-chunk footprint under it (out-of-core
-        execution, ``run --host-chunks``); 0 when no chunking helps
-        (the i extent cannot absorb it, or non-i-spanning arrays alone
-        exceed the budget — only i-spanning bytes shrink with chunking)."""
+        """1 when the in-core footprint fits device memory (with 25%
+        headroom for XLA temporaries), else the smallest power-of-two
+        i-chunk count that brings the per-chunk footprint under it
+        (out-of-core execution, ``run --host-chunks``); 0 when no chunking
+        helps (the i extent cannot absorb it, or non-i-spanning arrays
+        alone exceed the budget — only i-spanning bytes shrink with
+        chunking)."""
         budget = 0.75 * self.hw.hbm_bytes
         total = self.hbm_footprint_bytes()
         if total <= budget:
@@ -119,135 +95,24 @@ class Report:
         return (self.analysis.minimum_communication_volume()
                 / self.hw.hbm_bandwidth)
 
-    def vpu_time_s(self) -> float:
-        return self.total_ops() / self.hw.vpu_elemops
-
-    def vpu_pass_time_s(self) -> float:
-        """Time at the measured sustained VMEM-pass rate (1.85e12 op/s,
-        scripts/vpu_ceiling.py serial-chain shapes) — the REACHABLE bound
-        for low-arithmetic-intensity sums, vs the 4-ALU issue ceiling
-        ``vpu_time_s`` which only deep register-resident expressions
-        approach (RESULTS.md round 3, "structural residual")."""
-        return self.total_ops() / config.TPU_VPU_PASS_RATE
+    def compute_time_s(self) -> float:
+        return self.total_ops() / self.hw.fp32_flops
 
     def bound_fractions(self, measured_time_s: float) -> Dict[str, float]:
-        """Named fractions of every roofline candidate for a measured
-        per-evaluation time — self-describing across ceiling
-        recalibrations (the reference's upper-bound-vs-peak distinction,
-        /root/reference/bin/report.py:40-43).  Keys: ``vs_hbm``,
-        ``vs_vpu_issue`` (4-ALU peak), ``vs_vpu_pass`` (sustained pass
-        rate), and ``vs_mxu`` when the banded-MXU strategy applies."""
-        out = {
-            "vs_hbm": self.hbm_time_s() / measured_time_s,
-            "vs_vpu_issue": self.vpu_time_s() / measured_time_s,
-            "vs_vpu_pass": self.vpu_pass_time_s() / measured_time_s,
-        }
-        m = self.mxu_model()
-        if m is not None:
-            out["vs_mxu"] = ((m["mxu_time_s"] + m["vpu_rest_time_s"])
-                             / measured_time_s)
-            # the opt-in single-pass denominator: fractions of runs
-            # measured with --mxu-precision bf16 stay <= 1 against THIS
-            # bound (the split-priced vs_mxu can honestly exceed 1
-            # there — VERDICT r4 weak #7)
-            out["vs_mxu_1pass"] = (
-                (m["mxu_time_s_bf16"] + m["vpu_rest_time_s"])
-                / measured_time_s)
-        return {k: round(v, 4) for k, v in out.items()}
+        """Fractions of each roofline term for a measured per-evaluation
+        time (the reference's upper-bound-vs-peak distinction,
+        /root/reference/bin/report.py:40-43)."""
+        return {"vs_hbm": self.hbm_time_s() / measured_time_s,
+                "vs_compute": self.compute_time_s() / measured_time_s}
 
-    def mxu_model(self) -> Optional[Dict]:
-        """Banded-MXU strategy model for the chain's MXU-eligible stages
-        (None when the planner takes nothing): executed matmul flops per
-        cell (band windows, split-precision passes — the real cost, not
-        the stencil's nominal ops), the stages moved, and the residual
-        VPU ops of the remaining stages.  Cached per Report."""
-        if hasattr(self, "_mxu_model"):
-            return self._mxu_model
-        from .backend.compose import compose_program, plan_composed
-        from .backend.linear import (MatrixPool, finalize_pool,
-                                     mxu_flops_per_cell,
-                                     plan_all_stages)
-        from .frontend.analysis import operation_count
-        p = self.program
-        dims = p.dimensions
-        plane = (dims[1], dims[2])
-        pool = MatrixPool()
-        # price the strategy the stream planner actually picks: composed
-        # segments replace their runs (one transform per t stages,
-        # backend/compose.py) before per-stage SVD planning
-        comp = compose_program(p, self.analysis)
-        builds = {}
-        if comp is not None:
-            p, builds = comp
-        plans = plan_all_stages(p, plane, dims, pool, 12,
-                                exclude=tuple(builds))
-        for cname, b in builds.items():
-            cp = plan_composed(b, plane, dims, pool)
-            if cp is not None:
-                plans[cname] = cp
-        if not plans:
-            self._mxu_model = None
-            return None
-        pkeys, parrs, _pmeta, tkeys = finalize_pool(plans, pool, p)
-        fpc = mxu_flops_per_cell(plane, pkeys, parrs, tkeys)
-        fpc_bf16 = mxu_flops_per_cell(plane, pkeys, parrs, tkeys,
-                                      mxu_precision="bf16")
-        vpu_rest = 0.0
-        for kname, kspec in p.kernels.items():
-            if kname in plans:
-                mp = plans[kname]
-                if not hasattr(mp, "groups"):
-                    # composed stage: per output plane, one table-weighted
-                    # FMA + i-OOB guard per i-offset (covers t steps)
-                    vpu_rest += 3 * len(mp.offsets)
-                else:
-                    # residual VPU work of an MXU stage: combining its
-                    # i-offset group planes (adds) + bias
-                    vpu_rest += max(0, len(mp.groups) - 1) + 1
-                continue
-            for op, c in operation_count(kspec).items():
-                vpu_rest += c * _OP_COST.get(op, 1)
-        n = p.total_elements
-        self._mxu_model = {
-            "stages": sorted(plans),
-            "mxu_flops_per_cell": fpc,
-            "mxu_time_s": fpc * n / self.hw.mxu_flops,
-            # the opt-in single-pass mode (`--mxu-precision bf16`,
-            # bf16-level accuracy): measured 1.49x over split at
-            # 256^3 x8 (RESULTS.md round 3)
-            "mxu_flops_per_cell_bf16": fpc_bf16,
-            "mxu_time_s_bf16": fpc_bf16 * n / self.hw.mxu_flops,
-            "vpu_rest_ops_per_cell": vpu_rest,
-            "vpu_rest_time_s": vpu_rest * n / self.hw.vpu_elemops,
-        }
-        return self._mxu_model
-
-    def roofline_time_s(self, mxu_precision: str = "split") -> float:
-        """Runtime lower bound: HBM floor vs the faster of the two
-        compute strategies — all-VPU, or banded-MXU for eligible stages
-        plus VPU for the rest (the engine the backend actually picks).
-
-        ``mxu_precision="bf16"`` prices the opt-in single-pass band
-        transforms so a run measured in that mode reports a <= 1
-        fraction of ITS OWN bound (the default prices the 2-3
-        split-precision passes of the accuracy contract)."""
-        compute = self.vpu_time_s()
-        m = self.mxu_model()
-        if m is not None:
-            key = ("mxu_time_s_bf16" if mxu_precision == "bf16"
-                   else "mxu_time_s")
-            compute = min(compute, m[key] + m["vpu_rest_time_s"])
-        return max(self.hbm_time_s(), compute, 1e-12)
+    def roofline_time_s(self) -> float:
+        """Runtime lower bound: the larger of the memory and compute
+        floors."""
+        return max(self.hbm_time_s(), self.compute_time_s(), 1e-12)
 
     def bound(self) -> str:
-        hbm = self.hbm_time_s()
-        m = self.mxu_model()
-        vpu = self.vpu_time_s()
-        if m is not None:
-            mt = m["mxu_time_s"] + m["vpu_rest_time_s"]
-            if mt < vpu:
-                return "mxu" if mt > hbm else "hbm"
-        return "vpu" if vpu > hbm else "hbm"
+        return ("compute" if self.compute_time_s() > self.hbm_time_s()
+                else "hbm")
 
     def roofline_gcell_s(self) -> float:
         return self.program.total_elements / self.roofline_time_s() / 1e9
@@ -257,22 +122,26 @@ class Report:
         buffers), the reference's fast-memory total."""
         return self.analysis.fast_memory_bytes()
 
-    # -- multi-chip scaling model ---------------------------------------------
+    # -- multi-device scaling model -------------------------------------------
     def mesh_scaling(self, mesh_dims: Dict[str, int],
                      dim_axes=(None, "x", "y"),
-                     ici_bandwidth: float = config.TPU_ICI_BANDWIDTH
-                     ) -> Dict:
+                     link_bandwidth: Optional[float] = None) -> Dict:
         """Analytic scaling of the shard_map domain decomposition over a
         device mesh: per-device compute (widened by the chain halo) plus
-        the one cumulative-halo ICI exchange per chain evaluation
-        (parallel/domain.py).  The TPU-mesh analogue of the reference's
-        required-bandwidth model (bin/report.py:55-57) — it answers "does
-        the halo exchange fit under the compute" for a proposed mesh.
+        the one cumulative-halo exchange per chain evaluation
+        (parallel/domain.py), priced at ``link_bandwidth`` (default: the
+        device's link rate each way; NVLink joins every pair of cards at
+        the same rate, so the mesh shape does not change it).  The
+        analogue of the reference's required-bandwidth model
+        (bin/report.py:55-57) — it answers "does the halo exchange fit
+        under the compute" for a proposed mesh.
 
         ``mesh_dims``: {axis name: devices along it}; ``dim_axes``: per
         padded dim (i, j, k) the mesh axis that shards it, or None.
         """
         from .backend.xla import chain_halo
+        if link_bandwidth is None:
+            link_bandwidth = self.hw.link_bandwidth
         dims = self.program.dimensions
         halo = chain_halo(self.analysis)
         used = [a for a in dim_axes if a]
@@ -303,7 +172,7 @@ class Report:
                 widened *= (local[d] + 2 * halo[d]) / local[d]
         frac = np.prod(local) / self.program.total_elements
         t_comp = max(self.hbm_time_s() * frac * widened,
-                     self.vpu_time_s() * frac * widened, 1e-12)
+                     self.compute_time_s() * frac * widened, 1e-12)
 
         # cumulative-halo exchange: per sharded dim, both directions, for
         # every full-domain input field (domain.py exchanges inputs once
@@ -312,7 +181,7 @@ class Report:
         # earlier dims (corner traffic) — validated EXACTLY against the
         # collective-permute bytes of the compiled sharded HLO
         # (tests/test_mesh_model.py).
-        ici_bytes = 0
+        link_bytes = 0
         for name, spec in self.program.inputs.items():
             if spec.is_scalar:
                 continue
@@ -330,9 +199,9 @@ class Report:
                         # widened extent (corner traffic)
                         w += 2 * halo[o]
                     cross *= w
-                ici_bytes += 2 * halo[d] * cross * isz
-        t_ici = ici_bytes / ici_bandwidth
-        t_step = t_comp + t_ici          # no compute/comm overlap assumed
+                link_bytes += 2 * halo[d] * cross * isz
+        t_link = link_bytes / link_bandwidth
+        t_step = t_comp + t_link         # no compute/comm overlap assumed
         t_single = self.roofline_time_s()
 
         # --comm-overlap variant (parallel/domain.py overlap bodies): the
@@ -358,25 +227,25 @@ class Report:
             strip_cells += 2 * 3 * halo[d] * face
         t_int = per_cell * interior_cells
         t_strips = per_cell * strip_cells
-        t_step_ov = max(t_int, t_ici) + t_strips
+        t_step_ov = max(t_int, t_link) + t_strips
         overlap = {
             "interior_cells": interior_cells,
             "strip_cells": strip_cells,
             "t_interior_s": t_int,
             "t_strips_s": t_strips,
             "t_step_s": t_step_ov,
-            "hidden_ici_s": min(t_ici, t_int),
-            "exposed_ici_s": max(0.0, t_ici - t_int),
+            "hidden_link_s": min(t_link, t_int),
+            "exposed_link_s": max(0.0, t_link - t_int),
             "parallel_efficiency": t_single / (n_dev * t_step_ov)
             if t_step_ov > 0 else 1.0,
             "scaled_gcell_s":
                 self.program.total_elements / t_step_ov / 1e9
                 if t_step_ov > 0 else float("inf"),
             "wins": t_step_ov < t_step,
-            # ICI time above which overlap pays: overcompute cost =
+            # exchange time above which overlap pays: overcompute cost =
             # t_int + t_strips - t_comp; overlap wins when the hidden
-            # exchange exceeds it (t_ici <= t_int regime)
-            "break_even_ici_s": max(0.0, t_int + t_strips - t_comp),
+            # exchange exceeds it (t_link <= t_int regime)
+            "break_even_link_s": max(0.0, t_int + t_strips - t_comp),
         }
         return {
             "devices": n_dev,
@@ -384,9 +253,9 @@ class Report:
             "dim_axes": list(dim_axes),
             "local_dims": local,
             "halo": list(halo),
-            "ici_bytes_per_device": ici_bytes,
+            "link_bytes_per_device": link_bytes,
             "t_compute_s": t_comp,
-            "t_ici_s": t_ici,
+            "t_link_s": t_link,
             "t_step_s": t_step,
             "parallel_efficiency": t_single / (n_dev * t_step),
             "scaled_gcell_s":
@@ -404,7 +273,7 @@ class Report:
             "kernels": len(self.program.kernels),
             "vectorization": self.program.vectorization,
             "ops_per_cell": ops,
-            "weighted_ops_per_cell": self.ops_per_cell(),
+            "total_ops_per_cell": self.ops_per_cell(),
             "total_ops": self.total_ops(),
             "critical_path_cycles": self.analysis.critical_path_cycles,
             "runtime_lower_bound_cycles":
@@ -415,14 +284,12 @@ class Report:
             "hbm_footprint_bytes": self.hbm_footprint_bytes(),
             "suggested_host_chunks": self.suggested_host_chunks(),
             "hbm_time_s": self.hbm_time_s(),
-            "vpu_time_s": self.vpu_time_s(),
-            "mxu_model": self.mxu_model(),
+            "compute_time_s": self.compute_time_s(),
             "roofline_time_s": self.roofline_time_s(),
             "bound_by": self.bound(),
             "roofline_gcell_s": self.roofline_gcell_s(),
             # GOp/s framing (the reference's headline unit, bin/report.py)
-            "peak_gop_s": self.total_ops() / self.vpu_time_s() / 1e9
-            if self.vpu_time_s() > 0 else 0.0,
+            "peak_gop_s": self.hw.fp32_flops / 1e9,
             "achievable_gop_s":
                 self.total_ops() / self.roofline_time_s() / 1e9,
         }
@@ -490,8 +357,8 @@ class Report:
         lines = [
             f"program: {self.program.name}  dims={d['dimensions']}  "
             f"kernels={d['kernels']}  W={d['vectorization']}",
-            f"ops/cell: {d['ops_per_cell']}  (weighted "
-            f"{d['weighted_ops_per_cell']:.1f})",
+            f"ops/cell: {d['ops_per_cell']}  (total "
+            f"{d['total_ops_per_cell']:.0f})",
             f"critical path: {d['critical_path_cycles']} cycles; "
             f"runtime lower bound: {d['runtime_lower_bound_cycles']} cycles",
             f"min communication volume: "
@@ -499,8 +366,8 @@ class Report:
             f"on-chip (streaming) working set: "
             f"{d['fast_memory_bytes']/2**10:.1f} KiB",
             f"roofline [{d['hardware']}]: "
-            f"HBM {d['hbm_time_s']*1e6:.1f} us vs VPU "
-            f"{d['vpu_time_s']*1e6:.1f} us -> bound by {d['bound_by']}; "
+            f"HBM {d['hbm_time_s']*1e6:.1f} us vs compute "
+            f"{d['compute_time_s']*1e6:.1f} us -> bound by {d['bound_by']}; "
             f"best possible {d['roofline_gcell_s']:.1f} GCell/s "
             f"({d['achievable_gop_s']:.0f} GOp/s)",
         ]
@@ -508,9 +375,9 @@ class Report:
             gib = d["hbm_footprint_bytes"] / 2**30
             hint = (f"run --host-chunks {d['suggested_host_chunks']}"
                     if d["suggested_host_chunks"] else
-                    "no i-chunking fits; shard across chips")
+                    "no i-chunking fits; shard across devices")
             lines.append(
-                f"HBM footprint {gib:.1f} GiB exceeds the chip "
+                f"HBM footprint {gib:.1f} GiB exceeds the device "
                 f"({self.hw.hbm_bytes/2**30:.0f} GiB): out-of-core "
                 f"advised -> {hint}")
             # out-of-core x domain decomposition: per-host/device

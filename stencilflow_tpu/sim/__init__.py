@@ -1,6 +1,6 @@
 """Cycle-accurate dataflow simulator.
 
-Software model of the streaming schedule the TPU backends implement: one
+Software model of the reference's streaming schedule: one
 element per cycle flows through every kernel of the chain, skew absorbed by
 per-edge bounded FIFOs sized by the delay/line-buffer analysis.  Overflowing
 a FIFO raises — running the simulator *proves* the statically computed

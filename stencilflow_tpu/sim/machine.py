@@ -121,8 +121,8 @@ _FN_SRC = {
 # binops/compares emit through _b(...)/_c(...) wrappers so mixed
 # int x float sites apply the framework's JAX-lattice promotion spec
 # (interpreter._match_mixed) before numpy's scalar op — a bare
-# `np.int32 * np.float32` would compute float64, which the TPU engines
-# cannot express (ADVICE r4 medium)
+# `np.int32 * np.float32` would compute float64, which the JAX engines
+# do not compute with x64 off (ADVICE r4 medium)
 _BIN_SRC = {"add": "_b_add", "sub": "_b_sub", "mult": "_b_mult",
             "div": "_b_div"}
 _CMP_SRC = {"lt": "_c_lt", "le": "_c_le", "gt": "_c_gt", "ge": "_c_ge",

@@ -208,7 +208,7 @@ def _res_ty(*tys):
     semantics, EXCEPT that a strong integer/bool meeting a strong float
     takes that float dtype — the framework's JAX-lattice mixed-promotion
     spec (interpreter._match_mixed; numpy alone would widen int32 x
-    float32 to float64, which the TPU engines cannot express).  Raises
+    float32 to float64, which the JAX engines do not compute).  Raises
     NativeBuildError (-> Python machine fallback) when numpy itself
     rejects a promotion (e.g. ml_dtypes bf16 x weak float)."""
     if all(_is_weak(t) for t in tys):
@@ -549,7 +549,7 @@ static inline double sf_max(double a, double b) {
 }
 // np.abs on ints (INT_MIN wraps to itself, like numpy; -fwrapv)
 static inline long long sf_iabs(long long a) { return a < 0 ? -a : a; }
-// round-to-nearest-even bfloat16 (the TPU compute dtype); NaN passthrough
+// round-to-nearest-even bfloat16; NaN passthrough
 static inline double rnd_bf16(double v) {
   float f = (float)v;
   if (f != f) return (double)f;

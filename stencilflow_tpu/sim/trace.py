@@ -7,7 +7,7 @@ interactively in Perfetto / chrome://tracing: one counter track per FIFO
 (occupancy over cycles), one per kernel (program counter), and one
 activity span per kernel from its first to its last fire.  The reference
 has no timeline tracer at all (SURVEY §5: occupancy metrics and FULL-log
-prints only); this is the TPU-native repo's observability extra on top
+prints only); this is this repo's observability extra on top
 of the CSV.
 
 Timestamps are cycles, written as microseconds (1 cycle == 1 us) so the

@@ -3,12 +3,11 @@
 An affine chain ``fn(x) = A x + c`` (constant coefficients, constant BCs;
 ``c`` collects bias terms, boundary constants, and any other inputs'
 contributions) is a matrix-free linear operator: one application = one
-streaming-kernel evaluation.  That unlocks IMPLICIT solvers the
-reference's feed-forward pipelines cannot express — e.g. backward-Euler
-diffusion ``(I - dt·L) x_{t+1} = x_t`` solved by conjugate gradients with
-the operator running on the streaming Pallas backend (and its transpose
-via :func:`stencilflow_tpu.grad.adjoint_program` when the operator is not
-symmetric).
+fused chain evaluation.  That unlocks IMPLICIT solvers the reference's
+feed-forward pipelines cannot express — e.g. backward-Euler diffusion
+``(I - dt·L) x_{t+1} = x_t`` solved by conjugate gradients (with the
+transpose via :func:`stencilflow_tpu.grad.adjoint_program` when the
+operator is not symmetric).
 
 ``c`` is measured once as ``fn(0)`` and moved to the right-hand side, so
 the returned ``x`` satisfies the PROGRAM's equation ``fn(x) = rhs``
@@ -46,8 +45,7 @@ def _validate_affine(program: ir.Program, field: str, out: str):
     return spec
 
 
-def _affine_op(program: ir.Program, field: str, out: str,
-               interpret: bool):
+def _affine_op(program: ir.Program, field: str, out: str):
     """``(op, offset)`` for the chain's affine map restricted to
     ``field`` → ``out``: ``op(x) = A x`` (traced-safe) and the concrete
     offset ``c = fn(0)`` with every other input at its declared data.
@@ -58,7 +56,7 @@ def _affine_op(program: ir.Program, field: str, out: str,
     from .data import load_input_arrays
 
     spec = _validate_affine(program, field, out)
-    fn, _b = compile_chain_best(program, interpret=interpret)
+    fn, _b = compile_chain_best(program)
     shape = tuple(spec.shape(program.dimensions))
     # every other input pinned at its declared data: its contribution
     # lands in the affine offset and is subtracted with it
@@ -80,7 +78,7 @@ def _affine_op(program: ir.Program, field: str, out: str,
 
 
 def _affine_op_chunked(program: ir.Program, field: str, out: str,
-                       chunks: int, interpret: bool):
+                       chunks: int):
     """Out-of-core variant of :func:`_affine_op`: one operator
     application = one i-chunked sweep (outofcore.py) over host-resident
     numpy state.  CG vectors live in host memory; only one chunk (+halo)
@@ -91,8 +89,7 @@ def _affine_op_chunked(program: ir.Program, field: str, out: str,
     from .outofcore import compile_chunked_chain, run_chunked
 
     spec = _validate_affine(program, field, out)
-    compiled = compile_chunked_chain(program, chunks,
-                                     interpret=interpret)
+    compiled = compile_chunked_chain(program, chunks)
     shape = tuple(spec.shape(program.dimensions))
     rest = {n: np.asarray(v)
             for n, v in load_input_arrays(program).items() if n != field}
@@ -156,26 +153,31 @@ def _make_cg_run(op: Callable, tol: float, maxiter: int) -> Callable:
     import jax.numpy as jnp
     from jax import lax
 
+    def dot(a, b):
+        # full-precision inner products: a float32 dot may otherwise run
+        # in TF32 on the GPU's tensor cores (10-bit mantissa)
+        return jnp.vdot(a, b, precision=lax.Precision.HIGHEST).real
+
     def body(state):
         x, r, p, rs, k = state
         ap = op(p)
-        alpha = rs / jnp.vdot(p, ap).real
+        alpha = rs / dot(p, ap)
         x = x + alpha * p
         r = r - alpha * ap
-        rs_new = jnp.vdot(r, r).real
+        rs_new = dot(r, r)
         p = r + (rs_new / rs) * p
         return x, r, p, rs_new, k + 1
 
     @jax.jit
     def run(x, b):
-        atol2 = jnp.asarray(tol, b.dtype) ** 2 * jnp.vdot(b, b).real
+        atol2 = jnp.asarray(tol, b.dtype) ** 2 * dot(b, b)
 
         def cond(state):
             _x, _r, _p, rs, k = state
             return (rs > atol2) & (k < maxiter)
 
         r = b - op(x)
-        rs = jnp.vdot(r, r).real
+        rs = dot(r, r)
         state = lax.while_loop(cond, body, (x, r, r, rs, 0))
         return state[0], state[3], state[4]
 
@@ -186,7 +188,6 @@ def make_solver(program: ir.Program,
                 field: Optional[str] = None, out: Optional[str] = None,
                 method: str = "cg",
                 tol: float = 1e-6, maxiter: int = 1000,
-                interpret: bool = False,
                 host_chunks: int = 0) -> Callable:
     """Compile a reusable solver ``solver(rhs, x0=None) -> (x, info)`` for
     the program's equation ``fn(x) = rhs`` (``fn`` restricted to input
@@ -196,7 +197,7 @@ def make_solver(program: ir.Program,
     (e.g. ``y = x - dt·laplacian(x)``); ``method="cgnr"`` handles general
     affine chains via CG on the normal equations, with the transposed
     chain from :func:`stencilflow_tpu.grad.adjoint_program` — both
-    operators run on the streaming backend, iterations on device.
+    operators run as fused chains, iterations on device.
 
     ``host_chunks`` > 1: implicit solves on domains larger than device
     memory — each operator application streams the domain in i-chunks
@@ -216,10 +217,9 @@ def make_solver(program: ir.Program,
     field = field or next(iter(program.inputs))
     out = out or program.outputs[0]
     if host:
-        op, offset = _affine_op_chunked(program, field, out,
-                                        host_chunks, interpret)
+        op, offset = _affine_op_chunked(program, field, out, host_chunks)
     else:
-        op, offset = _affine_op(program, field, out, interpret)
+        op, offset = _affine_op(program, field, out)
 
     if method == "cg":
         normal = op
@@ -229,11 +229,9 @@ def make_solver(program: ir.Program,
         adj, cot = adjoint_program(program, wrt=[field])
         if host:
             op_t, _zero = _affine_op_chunked(adj, cot[out],
-                                             f"adj_{field}",
-                                             host_chunks, interpret)
+                                             f"adj_{field}", host_chunks)
         else:
-            op_t, _zero = _affine_op(adj, cot[out], f"adj_{field}",
-                                     interpret)
+            op_t, _zero = _affine_op(adj, cot[out], f"adj_{field}")
 
         def normal(v):
             return op_t(op(v).reshape(v.shape)).reshape(v.shape)

@@ -44,6 +44,19 @@ def chain_graph_dot(program: ir.Program,
     return "\n".join(lines)
 
 
+def _pyplot():
+    """matplotlib's pyplot on the file-only Agg backend."""
+    try:
+        import matplotlib
+    except ImportError as exc:
+        raise ImportError(
+            "PNG plots need the matplotlib package, which is not "
+            "installed; write a .dot file instead") from exc
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
 def plot_chain_graph(program: ir.Program, path: str,
                      graph: Optional[ChainGraph] = None) -> str:
     """Render the program DAG (inputs → kernels → outputs) to ``path``
@@ -52,9 +65,7 @@ def plot_chain_graph(program: ir.Program, path: str,
         with open(path, "w") as f:
             f.write(chain_graph_dot(program, graph))
         return path
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = _pyplot()
 
     graph = graph or ChainGraph.build(program)
     depth = _layers(graph)
@@ -94,9 +105,7 @@ def plot_chain_graph(program: ir.Program, path: str,
 
 def plot_compute_graph(kspec: ir.KernelSpec, path: str) -> str:
     """Render one kernel's expression DAG to ``path``."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = _pyplot()
 
     nodes: List[Tuple[int, str, int]] = []   # (id, label, depth)
     edges: List[Tuple[int, int]] = []

@@ -1,4 +1,4 @@
-"""Backend equivalence tests: every lowering strategy must match the numpy
+"""Backend equivalence tests: every execution path must match the numpy
 oracle (the reference's compare-to-reference discipline,
 /root/reference/stencilflow/run_program.py:219-250), on the virtual CPU mesh.
 """
@@ -10,7 +10,6 @@ import jax.numpy as jnp
 from jax.sharding import Mesh
 
 import stencilflow_tpu as sft
-from stencilflow_tpu.backend.pallas import run_chain_pallas
 from stencilflow_tpu.backend.xla import run_chain
 from stencilflow_tpu.parallel.domain import run_sharded_chain
 from stencilflow_tpu.parallel.pipeline import run_pipeline_split
@@ -84,281 +83,11 @@ class TestXLABackend:
         out = run_chain(p, inputs)
         np.testing.assert_allclose(out["res"], ref["res"], rtol=1e-6)
 
-
-class TestPallasInterpret:
-    """Pallas kernels in interpreter mode (compiled Mosaic needs real TPU)."""
-
-    @pytest.mark.parametrize("mode", ["masked", "fast"])
-    def test_jacobi3d_modes(self, mode):
-        p = _program_jacobi3d(size=16, iters=2)
-        inputs = sft.load_input_arrays(p, seed=4)
-        ref = _oracle(p, inputs)
-        out = run_chain_pallas(p, inputs, interpret=True, tile=(4, 8, 16))
-        np.testing.assert_allclose(out["s1"], ref["s1"], rtol=1e-6)
-
-    def test_shrink_boundary_with_halo(self):
-        p = _program_jacobi3d(size=16, iters=2, boundary="shrink")
-        inputs = sft.load_input_arrays(p, seed=5)
-        ref = _oracle(p, inputs)
-        out = run_chain_pallas(p, inputs, interpret=True, tile=(4, 8, 16))
-        h = 2  # chain halo
-        core = (slice(h, -h),) * 3
-        np.testing.assert_allclose(out["s1"][core], ref["s1"][core],
-                                   rtol=1e-6)
-
-
-class TestStreamBackend:
-    """Streaming (plane-pipeline) Pallas kernel in interpreter mode."""
-
-    @pytest.mark.parametrize("boundary", ["constant", "copy", "shrink"])
-    def test_jacobi3d_boundaries(self, boundary):
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        p = _program_jacobi3d(size=12, iters=3, boundary=boundary)
-        inputs = sft.load_input_arrays(p, seed=11)
-        ref = _oracle(p, inputs)["s2"]
-        got = run_chain_stream(p, inputs, interpret=True)["s2"]
-        if boundary == "shrink":
-            h = 3
-            core = (slice(h, -h),) * 3
-            ref, got = ref[core], got[core]
-        np.testing.assert_allclose(got, ref, rtol=1e-6)
-
-    def test_asymmetric_i_offsets_and_scalar(self):
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        rng = np.random.default_rng(12)
-        a = rng.random((10, 8, 16)).astype(np.float32)
-        c = np.float32(0.25)
-        p = sft.parse_program({
-            "inputs": {"a": {"data": a, "data_type": "float32"},
-                       "c": {"data": c, "data_type": "float32",
-                             "input_dims": []}},
-            "outputs": ["v"],
-            "dimensions": [10, 8, 16],
-            "program": {
-                "u": {"computation_string": "u = c * (a[i-2,j,k] + a[i,j,k])",
-                      "boundary_conditions": {
-                          "a": {"type": "constant", "value": 2.0}},
-                      "data_type": "float32"},
-                "v": {"computation_string": "v = u[i+1,j,k] - u[i,j-1,k]",
-                      "boundary_conditions": {
-                          "u": {"type": "constant", "value": 1.0}},
-                      "data_type": "float32"},
-            },
-        }, name="asym")
-        inputs = {"a": a, "c": c}
-        ref = _oracle(p, inputs)["v"]
-        got = run_chain_stream(p, inputs, interpret=True)["v"]
-        np.testing.assert_allclose(got, ref, rtol=1e-6)
-
-    @pytest.mark.parametrize("boundary", ["constant", "copy"])
-    def test_i_sharded_stream_local_backend(self, boundary):
-        """Streamed dim sharded across devices: i-halo exchanged planes
-        feed the per-shard stream kernel with a shifted origin."""
-        from stencilflow_tpu.parallel.domain import compile_sharded_chain
-        p = _program_jacobi3d(size=16, iters=2, boundary=boundary)
-        inputs = sft.load_input_arrays(p, seed=51)
-        ref = _oracle(p, inputs)["s1"]
-        devs = np.array(jax.devices()[:4]).reshape(2, 2)
-        mesh = Mesh(devs, ("x", "y"))
-        fn, plan = compile_sharded_chain(p, mesh, ("x", "y", None),
-                                         local_backend="stream",
-                                         interpret=True)
-        sh = plan.input_shardings()
-        dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
-                  for n, v in inputs.items()}
-        out = np.asarray(fn(dev_in)["s1"])
-        np.testing.assert_allclose(out, ref, rtol=1e-6)
-
-    @pytest.mark.parametrize("boundary", ["constant", "copy"])
-    def test_jtiled_large_plane_fallback(self, boundary):
-        """Planes over the VMEM budget stream in j-tiles widened by the
-        chain halo (BC masks use the tile origin)."""
-        from stencilflow_tpu.backend.stream import compile_chain_stream
-        p = _program_jacobi3d(size=32, iters=2, boundary=boundary)
-        inputs = sft.load_input_arrays(p, seed=31)
-        ref = _oracle(p, inputs)["s1"]
-        # budget below the untiled need (rings + pipeline windows) but
-        # enough for 4 j-tiles at the 4-rounded overlap halo
-        fn = compile_chain_stream(p, interpret=True, vmem_budget=30 * 1024)
-        assert compile_chain_stream.last_config["jtiles"] > 1
-        got = np.asarray(fn({k: jnp.asarray(v)
-                             for k, v in inputs.items()})["s1"])
-        np.testing.assert_allclose(got, ref, rtol=1e-6)
-
-    def test_large_2d_plan_satisfies_mosaic_blocks(self):
-        """Very large 2-D domains: the tile search must budget the Mosaic
-        pipeline windows (2x each pallas operand block) and emit widened
-        tiles whose second-minor dim is a multiple of 8 — both real-TPU
-        constraints invisible to interpret mode."""
-        from stencilflow_tpu.backend.stream import compile_chain_stream
-        from stencilflow_tpu.synthesize import jacobi
-        for size, iters in ((16384, 2), (8192, 8)):
-            p = sft.parse_program(jacobi(2, size, iterations=iters),
-                                  name=f"j2d_{size}")
-            compile_chain_stream(p, interpret=True)   # plan only
-            cfg = compile_chain_stream.last_config
-            tj, hj = cfg["tile_jk"][0], cfg["halo_jk"][0]
-            assert cfg["jtiles"] > 1
-            assert (tj + 2 * hj) % 8 == 0
-            from stencilflow_tpu import config
-            assert cfg["vmem_bytes"] <= 0.7 * config.TPU_STREAM_VMEM_BUDGET
-
-    def test_multiple_outputs_at_different_lags(self):
-        """Two outputs at different pipeline depths: the emit logic pads
-        the shallower output's ring and both arrive intact."""
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        from stencilflow_tpu.sim.native import NativeSimulator
-        rng = np.random.default_rng(41)
-        a = rng.random((10, 8, 16)).astype(np.float32)
-        p = sft.parse_program({
-            "inputs": {"a": {"data": a, "data_type": "float32"}},
-            "outputs": ["shallow", "deep"],
-            "dimensions": [10, 8, 16],
-            "program": {
-                "shallow": {
-                    "computation_string":
-                        "shallow = 0.5 * (a[i-1,j,k] + a[i+1,j,k])",
-                    "boundary_conditions": {
-                        "a": {"type": "constant", "value": 0.0}},
-                    "data_type": "float32"},
-                "mid": {
-                    "computation_string":
-                        "mid = shallow[i,j-1,k] + shallow[i,j+1,k]",
-                    "boundary_conditions": {
-                        "shallow": {"type": "constant", "value": 1.0}},
-                    "data_type": "float32"},
-                "deep": {
-                    "computation_string":
-                        "deep = mid[i+2,j,k] - a[i,j,k]",
-                    "boundary_conditions": {
-                        "mid": {"type": "constant", "value": 0.0},
-                        "a": {"type": "constant", "value": 0.0}},
-                    "data_type": "float32"},
-            },
-        }, name="multiout")
-        inputs = {"a": a}
-        ref = _oracle(p, inputs)
-        got_s = run_chain_stream(p, inputs, interpret=True)
-        got_x = run_chain(p, inputs)
-        got_sim = NativeSimulator(p).run(inputs).outputs
-        for o in ("shallow", "deep"):
-            np.testing.assert_allclose(got_s[o], ref[o], rtol=1e-6,
-                                       err_msg=f"stream {o}")
-            np.testing.assert_allclose(got_x[o], ref[o], rtol=1e-6,
-                                       err_msg=f"xla {o}")
-            np.testing.assert_array_equal(got_sim[o], ref[o])
-
-    def test_sharded_jtiled_stream(self, monkeypatch):
-        """Per-shard j-tiling engages when a shard's rings exceed the VMEM
-        budget (overlapped j-windows inside the exchanged local block)."""
-        import stencilflow_tpu.backend.stream as st
-        from stencilflow_tpu.frontend.analysis import ChainAnalysis
-        from stencilflow_tpu.parallel.domain import compile_sharded_chain
-        p = _program_jacobi3d(size=32, iters=2)
-        inputs = sft.load_input_arrays(p, seed=71)
-        ref = _oracle(p, inputs)["s1"]
-        an = ChainAnalysis.run(p)
-        # the search's actual candidates for the (None, x, y) 2x2 mesh:
-        # untiled local planes widened by the exchanged halo (2, 2), and
-        # one 2-way j-tile at the 4-rounded Mosaic overlap halo
-        whole = st.StreamPlan.build(
-            an, local_jk=(16, 16), halo_jk=(2, 2)).vmem_bytes(p)
-        tiled = st.StreamPlan.build(
-            an, local_jk=(8, 16), halo_jk=(4, 2)).vmem_bytes(p)
-        from stencilflow_tpu import config
-        scale = (0.7 * config.TPU_STREAM_VMEM_BUDGET) / \
-            ((whole + tiled) / 2)
-        orig = st.StreamPlan.vmem_bytes
-        monkeypatch.setattr(
-            st.StreamPlan, "vmem_bytes",
-            lambda self, prog, cd=None, ring_storage=None:
-                int(orig(self, prog, cd, ring_storage) * scale))
-        mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("x", "y"))
-        fn, plan = compile_sharded_chain(p, mesh, (None, "x", "y"),
-                                         local_backend="stream",
-                                         interpret=True)
-        assert compile_sharded_chain.last_config["jtiles"] > 1
-        sh = plan.input_shardings()
-        dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
-                  for n, v in inputs.items()}
-        out = np.asarray(fn(dev_in)["s1"])
-        np.testing.assert_allclose(out, ref, rtol=1e-6)
-
-    def test_bfloat16_compute_dtype(self):
-        from stencilflow_tpu.backend.stream import compile_chain_stream
-        p = _program_jacobi3d(size=12, iters=2)
-        inputs = sft.load_input_arrays(p, seed=61)
-        ref = _oracle(p, inputs)["s1"]
-        fn = compile_chain_stream(p, interpret=True,
-                                  compute_dtype="bfloat16")
-        got = np.asarray(fn({k: jnp.asarray(v)
-                             for k, v in inputs.items()})["s1"])
-        assert got.dtype == np.float32      # cast back to the program dtype
-        np.testing.assert_allclose(got, ref, rtol=3e-2, atol=1e-2)
-
-    def test_bf16_ring_storage(self):
-        """bf16 ring STORAGE with f32 compute (VERDICT r3 next #5):
-        error stays in the per-stage-rounding envelope (~1 bf16 ulp per
-        stage, far tighter than whole-chain bf16 compute), the plan
-        accounts half-size rings, and non-f32 programs are unaffected."""
-        from stencilflow_tpu.backend.stream import (StreamPlan,
-                                                    compile_chain_stream)
-        from stencilflow_tpu.frontend.analysis import ChainAnalysis
-        p = _program_jacobi3d(size=12, iters=4)
-        inputs = sft.load_input_arrays(p, seed=61)
-        ref = _oracle(p, inputs)["s3"]
-        fn = compile_chain_stream(p, interpret=True, mxu="off",
-                                  ring_storage="bfloat16")
-        got = np.asarray(fn({k: jnp.asarray(v)
-                             for k, v in inputs.items()})["s3"])
-        assert got.dtype == np.float32
-        rel = np.abs(got - ref).max() / np.abs(ref).max()
-        assert 0 < rel < 2e-2      # rounded (not exact), inside envelope
-        # sizing: rings halve; io windows (f32 in/out) unchanged
-        plan = StreamPlan.build(ChainAnalysis.run(p))
-        assert plan.vmem_bytes(p, None, "bfloat16") * 2 == \
-            plan.vmem_bytes(p, None)
-        # reduced compute_dtype disables ring_storage (already reduced)
-        fn2 = compile_chain_stream(p, interpret=True, mxu="off",
-                                   compute_dtype="bfloat16",
-                                   ring_storage="bfloat16")
-        got2 = np.asarray(fn2({k: jnp.asarray(v)
-                               for k, v in inputs.items()})["s3"])
-        np.testing.assert_allclose(got2, ref, rtol=3e-2, atol=1e-2)
-        with pytest.raises(ValueError, match="ring_storage"):
-            compile_chain_stream(p, ring_storage="float16")
-
-    def test_bf16_ring_storage_panel(self):
-        """bf16 panel-stack storage mirrors the stream contract: f32
-        compute, one rounding per stage at the stack store, halved
-        stack accounting."""
-        from stencilflow_tpu.backend.panel import (PanelPlan,
-                                                   compile_chain_panel)
-        from stencilflow_tpu.frontend.analysis import ChainAnalysis
-        p = _program_jacobi3d(size=16, iters=4)
-        inputs = sft.load_input_arrays(p, seed=61)
-        ref = _oracle(p, inputs)["s3"]
-        fn = compile_chain_panel(p, interpret=True,
-                                 ring_storage="bfloat16")
-        got = np.asarray(fn({k: jnp.asarray(v)
-                             for k, v in inputs.items()})["s3"])
-        assert got.dtype == np.float32
-        rel = np.abs(got - ref).max() / np.abs(ref).max()
-        assert 0 < rel < 2e-2
-        plan = PanelPlan.build(ChainAnalysis.run(p), 4)
-        assert plan.vmem_bytes(p, 16, 16, "bfloat16") * 2 == \
-            plan.vmem_bytes(p, 16, 16)
-        with pytest.raises(ValueError, match="ring_storage"):
-            compile_chain_panel(p, ring_storage="float16")
-
     def test_best_backend_selector(self):
         from stencilflow_tpu.backend import compile_chain_best
         p = _program_jacobi3d(size=12, iters=2)
-        # CPU host (this test env) and emulation both route to the fused-XLA
-        # path — compiled Mosaic needs real TPU, interpreted pallas is slow
-        fn_hw, name_hw = compile_chain_best(p)
-        assert name_hw == "xla"
-        fn, name = compile_chain_best(p, interpret=True)
+        # gpu and cpu both lower through the fused-XLA tile strategy
+        fn, name = compile_chain_best(p)
         assert name == "xla"
         inputs = sft.load_input_arrays(p, seed=13)
         ref = _oracle(p, inputs)["s1"]
@@ -373,7 +102,9 @@ class TestReport:
         p = _program_jacobi3d(size=16, iters=8)
         r = Report.build(p)
         d = r.as_dict()
-        assert d["bound_by"] == "vpu"  # deep chain is compute-bound
+        # 48 ops per 8 bytes moved: below the H100's 20 FLOP/byte ridge
+        assert d["bound_by"] == "hbm"
+        assert d["total_ops_per_cell"] == 48
         assert d["roofline_time_s"] > 0
         assert d["min_communication_volume_bytes"] == 2 * 16**3 * 4
         assert "add" in d["ops_per_cell"]
@@ -394,7 +125,7 @@ class TestReport:
         # exchange volume: j slabs (2 dirs x halo 8 x 64x32 cross), then
         # k slabs across the j-WIDENED extent (corner traffic, validated
         # against compiled HLO in tests/test_mesh_model.py)
-        assert s2["ici_bytes_per_device"] == \
+        assert s2["link_bytes_per_device"] == \
             (2 * 8 * 64 * 32 + 2 * 8 * 64 * (32 + 16)) * 4
         with pytest.raises(ValueError):
             r.mesh_scaling({"x": 3}, (None, "x", None))
@@ -535,7 +266,6 @@ class TestMultiChip:
         from stencilflow_tpu.parallel.pipeline import (optimize_split,
                                                        run_pipeline_split,
                                                        split_kernels)
-        from stencilflow_tpu.report import _OP_COST
         # s1 is far heavier than the rest: balanced-count splits lump it
         # with neighbors; the optimizer isolates it
         spec = synthesize_stencil(num_stages=4, dimensions=(8, 8, 16))
@@ -547,8 +277,7 @@ class TestMultiChip:
         g = analysis.graph
 
         def bottleneck(segs):
-            return max(sum(sum(c * _OP_COST.get(op, 1) for op, c in
-                               operation_count(p.kernels[k]).items())
+            return max(sum(sum(operation_count(p.kernels[k]).values())
                            for k in seg) for seg in segs)
 
         segs, stats = optimize_split(p, g, 2)
@@ -632,385 +361,12 @@ class TestMultiChip:
                 np.testing.assert_allclose(np.asarray(out[o]), ref[o],
                                            rtol=1e-6)
 
-    def test_pipeline_sharded_stream_segments(self):
-        """Sharded I/O composes with per-segment streaming Pallas
-        kernels (interpret mode)."""
-        from stencilflow_tpu.parallel.pipeline import compile_pipeline_split
-        p = _program_jacobi3d(size=16, iters=4)
-        inputs = sft.load_input_arrays(p, seed=32)
-        ref = _oracle(p, inputs)
-        mesh = Mesh(np.array(jax.devices()[:4]), ("p",))
-        fn, _ = compile_pipeline_split(p, mesh, "p", io="sharded",
-                                       local_backend="stream",
-                                       interpret=True)
-        out = fn({k: jnp.asarray(v) for k, v in inputs.items()})
-        np.testing.assert_allclose(np.asarray(out["s3"]), ref["s3"],
-                                   rtol=1e-6)
-
-    def test_pipeline_split_stream_segments(self):
-        """Per-segment streaming Pallas kernels over the widened chunk
-        tiles (interpret mode), vs the oracle."""
-        from stencilflow_tpu.parallel.pipeline import compile_pipeline_split
-        p = _program_jacobi3d(size=16, iters=4)
-        inputs = sft.load_input_arrays(p, seed=28)
-        ref = _oracle(p, inputs)
-        mesh = Mesh(np.array(jax.devices()[:4]), ("p",))
-        fn, plan = compile_pipeline_split(p, mesh, "p",
-                                          local_backend="stream",
-                                          interpret=True)
-        out = fn({k: jnp.asarray(v) for k, v in inputs.items()})
-        np.testing.assert_allclose(np.asarray(out["s3"]), ref["s3"],
-                                   rtol=1e-6)
-
-    def test_pipeline_split_stream_segments_mxu_box(self):
-        """Pipeline segments with wide affine stages take the MXU path
-        (fixed-origin band matrices on the widened tile)."""
-        from stencilflow_tpu.parallel.pipeline import compile_pipeline_split
-        from stencilflow_tpu.synthesize import synthesize_stencil
-        spec = synthesize_stencil(num_stages=2, dimensions=(8, 16, 24),
-                                  shape="box", extent=2,
-                                  boundary="constant", boundary_value=0.3)
-        p = sft.parse_program(spec, name="pipembox")
-        inputs = sft.load_input_arrays(p, seed=29)
-        ref = _oracle(p, inputs)
-        mesh = Mesh(np.array(jax.devices()[:2]), ("p",))
-        fn, plan = compile_pipeline_split(p, mesh, "p",
-                                          local_backend="stream",
-                                          interpret=True)
-        out = fn({k: jnp.asarray(v) for k, v in inputs.items()})
-        np.testing.assert_allclose(np.asarray(out["s1"]), ref["s1"],
-                                   rtol=3e-5, atol=1e-6)
-
-    def test_domain_decomposition_stream_local_backend(self):
-        """The production path: per-shard streaming Pallas kernel (interpret
-        mode on the CPU mesh) under shard_map halo exchange."""
-        from stencilflow_tpu.parallel.domain import compile_sharded_chain
-        p = _program_jacobi3d(size=8, iters=2)
-        inputs = sft.load_input_arrays(p, seed=21)
-        ref = _oracle(p, inputs)["s1"]
-        devs = np.array(jax.devices()[:4]).reshape(2, 2)
-        mesh = Mesh(devs, ("x", "y"))
-        fn, plan = compile_sharded_chain(p, mesh, (None, "x", "y"),
-                                         local_backend="stream",
-                                         interpret=True)
-        sh = plan.input_shardings()
-        dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
-                  for n, v in inputs.items()}
-        out = np.asarray(fn(dev_in)["s1"])
-        np.testing.assert_allclose(out, ref, rtol=1e-6)
-
     def test_halo_exceeds_block_raises(self):
         p = _program_jacobi3d(size=16, iters=8)  # halo 8 == block 16/2... 8
         mesh = Mesh(np.array(jax.devices()[:2]), ("x",))
         from stencilflow_tpu.parallel.domain import DomainDecomposition
         with pytest.raises(ValueError):
             DomainDecomposition.plan(p, mesh, (None, "x", None))
-
-    @pytest.mark.parametrize("boundary", ["constant", "shrink", "copy"])
-    def test_i_sharded_shift_fill_reads(self, boundary):
-        """K >= 256 enables shift-in-fill reads in the per-shard kernel
-        for every dim the shard spans fully (i-only sharding: both j and
-        k); must match the oracle exactly (copy-BC fields keep masks)."""
-        from stencilflow_tpu.backend.stream import compile_local_stream
-        from stencilflow_tpu.parallel.domain import compile_sharded_chain
-        spec = synthesize_stencil(num_stages=2, dimensions=(8, 8, 256),
-                                  shape="diffusion", boundary=boundary)
-        p = sft.parse_program(spec, name=f"ishift_{boundary}")
-        inputs = sft.load_input_arrays(p, seed=61)
-        out_name = p.outputs[0]
-        ref = _oracle(p, inputs)[out_name]
-        mesh = Mesh(np.array(jax.devices()[:2]), ("x",))
-        fn, plan = compile_sharded_chain(p, mesh, ("x", None, None),
-                                         local_backend="stream",
-                                         interpret=True)
-        assert compile_local_stream.last_config["fast"] == "shift"
-        sh = plan.input_shardings()
-        dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
-                  for n, v in inputs.items()}
-        out = np.asarray(fn(dev_in)[out_name])
-        np.testing.assert_allclose(out, ref, rtol=1e-6)
-
-    def test_k_sharded_mixed_shift_and_mask(self):
-        """k sharded (halo-exchanged) with j unsharded at a wide plane:
-        the kernel shift-fills j but must keep the origin-based mask on
-        the cut k dim."""
-        from stencilflow_tpu.backend.stream import compile_local_stream
-        from stencilflow_tpu.parallel.domain import compile_sharded_chain
-        spec = synthesize_stencil(num_stages=2, dimensions=(4, 8, 512),
-                                  shape="diffusion")
-        p = sft.parse_program(spec, name="kshard_shift")
-        inputs = sft.load_input_arrays(p, seed=62)
-        out_name = p.outputs[0]
-        ref = _oracle(p, inputs)[out_name]
-        mesh = Mesh(np.array(jax.devices()[:2]), ("x",))
-        fn, plan = compile_sharded_chain(p, mesh, (None, None, "x"),
-                                         local_backend="stream",
-                                         interpret=True)
-        cfg = compile_local_stream.last_config
-        assert cfg["fast"] == "shift" and cfg["halo_jk"][1] > 0
-        sh = plan.input_shardings()
-        dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
-                  for n, v in inputs.items()}
-        out = np.asarray(fn(dev_in)[out_name])
-        np.testing.assert_allclose(out, ref, rtol=1e-6)
-
-
-class TestPanelBackend:
-    """Panel-mode streaming kernel (backend/panel.py): B stacked planes
-    per grid step; i/j offsets collapse to row arithmetic."""
-
-    @pytest.mark.parametrize("boundary", ["constant", "copy", "shrink"])
-    @pytest.mark.parametrize("B", [2, 4])
-    def test_jacobi3d_boundaries(self, boundary, B):
-        from stencilflow_tpu.backend.panel import run_chain_panel
-        p = _program_jacobi3d(size=16, iters=3, boundary=boundary)
-        inputs = sft.load_input_arrays(p, seed=60)
-        ref = _oracle(p, inputs)["s2"]
-        got = run_chain_panel(p, inputs, interpret=True, panel=B)["s2"]
-        np.testing.assert_array_equal(got, ref)
-
-    def test_mixed_rank_inputs_and_multi_axis_copy(self):
-        from stencilflow_tpu.backend.panel import run_chain_panel
-        p = sft.parse_program(synthesize_stencil(
-            num_stages=2, dimensions=(8, 16, 16), shape="hotspot"),
-            name="pnl_hot")
-        inputs = sft.load_input_arrays(p, seed=61)
-        ref = _oracle(p, inputs)
-        got = run_chain_panel(p, inputs, interpret=True, panel=4)
-        for o in p.outputs:
-            np.testing.assert_allclose(got[o], ref[o], rtol=3e-5,
-                                       atol=1e-6)
-        # multi-axis offsets with copy BC (union-mask regression)
-        spec = {
-            "inputs": {"a": {"data": "random:-1,1",
-                             "data_type": "float32"}},
-            "outputs": ["y"], "dimensions": [8, 12, 12],
-            "program": {
-                "m": {"computation_string":
-                      "m = 0.5*a[i-2,j+2,k+2] + a[i+1,j-1,k-1]",
-                      "boundary_conditions": {
-                          "a": {"type": "copy", "value": 0.0}},
-                      "data_type": "float32"},
-                "y": {"computation_string": "y = m[i,j,k] + m[i,j+1,k-1]",
-                      "boundary_conditions": {
-                          "m": {"type": "copy", "value": 0.0}},
-                      "data_type": "float32"}}}
-        p2 = sft.parse_program(spec, name="pnl_diag_copy")
-        inputs2 = sft.load_input_arrays(p2, seed=62)
-        ref2 = _oracle(p2, inputs2)["y"]
-        got2 = run_chain_panel(p2, inputs2, interpret=True, panel=4)["y"]
-        np.testing.assert_array_equal(got2, ref2)
-
-    @pytest.mark.parametrize("boundary", ["constant", "copy", "shrink"])
-    def test_b1_wide_j_offsets(self, boundary):
-        """B == 1 with J >= 256 (headline-geometry panels; fuzz grids
-        are too small to reach it): bit-exact vs oracle, including
-        diagonal j+k and j+i offsets.  Guards the mask-select j-offset
-        lowering at the shape where a shift_fill replacement A/B'd as
-        a tie (RESULTS.md round 3) — if that path is ever revisited,
-        this is the coverage."""
-        from stencilflow_tpu.backend.panel import run_chain_panel
-        bc = {"a": {"type": boundary, "value": 0.25}}
-        spec = {
-            "inputs": {"a": {"data": "random:-1,1",
-                             "data_type": "float32"}},
-            "outputs": ["y"], "dimensions": [4, 256, 16],
-            "program": {
-                "m": {"computation_string":
-                      "m = a[i,j-1,k] + 0.5*a[i,j+2,k+1] "
-                      "+ 0.25*a[i-1,j+1,k]",
-                      "boundary_conditions": bc,
-                      "data_type": "float32"},
-                "y": {"computation_string": "y = m[i,j,k] + m[i,j-2,k]",
-                      "boundary_conditions": {
-                          "m": {"type": boundary, "value": 0.25}},
-                      "data_type": "float32"}}}
-        p = sft.parse_program(spec, name=f"pnl_b1j_{boundary}")
-        inputs = sft.load_input_arrays(p, seed=63)
-        ref = _oracle(p, inputs)["y"]
-        got = run_chain_panel(p, inputs, interpret=True, panel=1)["y"]
-        np.testing.assert_array_equal(got, ref)
-
-    @pytest.mark.parametrize("seed", range(5))
-    def test_fuzz_matches_oracle(self, seed):
-        import os as _os
-        import sys as _sys
-        _sys.path.insert(0, _os.path.dirname(__file__))
-        from test_fuzz import make_random_program
-        from stencilflow_tpu.backend.panel import run_chain_panel
-        rng = np.random.default_rng(700 + seed)
-        p = sft.parse_program(make_random_program(rng, seed),
-                              name=f"pnlf{seed}")
-        B = (4 if p.dimensions[0] % 4 == 0 else
-             2 if p.dimensions[0] % 2 == 0 else 1)
-        inputs = sft.load_input_arrays(p, seed=2)
-        ref = _oracle(p, inputs)
-        try:
-            got = run_chain_panel(p, inputs, interpret=True, panel=B)
-        except ValueError:
-            pytest.skip("shape outside panel-mode scope")
-        for o in p.outputs:
-            np.testing.assert_allclose(got[o], ref[o], rtol=3e-5,
-                                       atol=1e-6)
-
-
-class TestOverlapBackend:
-    """Overlap-mode shallow-chain kernel (backend/overlap.py): rings only
-    for inputs; stages recomputed over i-overlapped blocks with static
-    slice reads."""
-
-    @pytest.mark.parametrize("boundary", ["constant", "copy", "shrink"])
-    @pytest.mark.parametrize("B", [4, 8])
-    def test_jacobi3d_boundaries(self, boundary, B):
-        from stencilflow_tpu.backend.overlap import run_chain_overlap
-        p = _program_jacobi3d(size=16, iters=3, boundary=boundary)
-        inputs = sft.load_input_arrays(p, seed=70)
-        ref = _oracle(p, inputs)["s2"]
-        got = run_chain_overlap(p, inputs, interpret=True, panel=B)["s2"]
-        np.testing.assert_array_equal(got, ref)
-
-    def test_single_panel_whole_domain(self):
-        # B == I: one panel, neighbors fully masked
-        from stencilflow_tpu.backend.overlap import run_chain_overlap
-        p = _program_jacobi3d(size=16, iters=2)
-        inputs = sft.load_input_arrays(p, seed=71)
-        ref = _oracle(p, inputs)["s1"]
-        got = run_chain_overlap(p, inputs, interpret=True, panel=16)["s1"]
-        np.testing.assert_array_equal(got, ref)
-
-    def test_mixed_rank_inputs_and_multi_axis_copy(self):
-        from stencilflow_tpu.backend.overlap import run_chain_overlap
-        p = sft.parse_program(synthesize_stencil(
-            num_stages=2, dimensions=(8, 16, 16), shape="hotspot"),
-            name="ovl_hot")
-        inputs = sft.load_input_arrays(p, seed=72)
-        ref = _oracle(p, inputs)
-        got = run_chain_overlap(p, inputs, interpret=True, panel=4)
-        for o in p.outputs:
-            np.testing.assert_allclose(got[o], ref[o], rtol=3e-5,
-                                       atol=1e-6)
-        spec = {
-            "inputs": {"a": {"data": "random:-1,1",
-                             "data_type": "float32"}},
-            "outputs": ["y"], "dimensions": [8, 12, 12],
-            "program": {
-                "m": {"computation_string":
-                      "m = 0.5*a[i-2,j+2,k+2] + a[i+1,j-1,k-1]",
-                      "boundary_conditions": {
-                          "a": {"type": "copy", "value": 0.0}},
-                      "data_type": "float32"},
-                "y": {"computation_string": "y = m[i,j,k] + m[i,j+1,k-1]",
-                      "boundary_conditions": {
-                          "m": {"type": "copy", "value": 0.0}},
-                      "data_type": "float32"}}}
-        p2 = sft.parse_program(spec, name="ovl_diag_copy")
-        inputs2 = sft.load_input_arrays(p2, seed=73)
-        ref2 = _oracle(p2, inputs2)["y"]
-        got2 = run_chain_overlap(p2, inputs2, interpret=True, panel=4)["y"]
-        np.testing.assert_array_equal(got2, ref2)
-
-    def test_auto_panel_never_steps_down_below_target(self):
-        """When the target panel's VMEM estimate exceeds the budget
-        gate, overlap must RAISE (callers fall back to stream) rather
-        than shrink the panel: smaller panels multiply halo
-        recompute+re-reads ((B+2H)/B) and measured slower than the
-        stream fallback (RESULTS.md round-2 overlap panel/vmem study).
-        """
-        from stencilflow_tpu.backend import overlap as ov
-        p = _program_jacobi3d(size=16, iters=2)
-        inputs = sft.load_input_arrays(p, seed=74)
-        ref = _oracle(p, inputs)["s1"]
-        got = ov.run_chain_overlap(p, inputs, interpret=True)
-        np.testing.assert_array_equal(got["s1"], ref)
-        # a budget below the target panel's estimate must raise, not
-        # silently pick a smaller divisor of I
-        with pytest.raises(ValueError, match="VMEM budget"):
-            ov.compile_chain_overlap(p, interpret=True,
-                                     vmem_budget=64 * 2**10)
-
-    def test_autotune_explicit_panel_relaxes_gate(self):
-        """The autotuner's explicit-B candidates pass gate_frac=1.0, so
-        a panel whose estimate sits between 0.7*budget and the budget
-        builds (and matches the oracle) where policy selection raises —
-        the over-gate +18% win from the RESULTS.md vmem study must stay
-        reachable via autotune."""
-        from stencilflow_tpu.backend import overlap as ov
-        p = _program_jacobi3d(size=16, iters=2)
-        inputs = sft.load_input_arrays(p, seed=75)
-        ref = _oracle(p, inputs)["s1"]
-        # find a budget with  0.7*budget < est(B=4) <= budget
-        probe = ov.compile_chain_overlap(p, interpret=True, panel=4)
-        del probe
-        lo, hi = 1, 1 << 34
-        # est is not exported; bisect the raise threshold at gate 1.0
-        while hi - lo > 1:
-            mid = (lo + hi) // 2
-            try:
-                ov.compile_chain_overlap(p, interpret=True, panel=4,
-                                         vmem_budget=mid, gate_frac=1.0)
-                hi = mid
-            except ValueError:
-                lo = mid
-        est = hi  # smallest budget that passes at gate_frac=1.0
-        budget = int(est * 1.2)  # 0.7*1.2 = 0.84 < 1 < 1.2
-        with pytest.raises(ValueError, match="VMEM budget"):
-            ov.compile_chain_overlap(p, interpret=True, panel=4,
-                                     vmem_budget=budget)
-        fn = ov.compile_chain_overlap(p, interpret=True, panel=4,
-                                      vmem_budget=budget, gate_frac=1.0)
-        got = fn({k: jnp.asarray(v) for k, v in inputs.items()})["s1"]
-        np.testing.assert_array_equal(np.asarray(got), ref)
-
-    @pytest.mark.parametrize("seed", range(5))
-    def test_fuzz_matches_oracle(self, seed):
-        import os as _os
-        import sys as _sys
-        _sys.path.insert(0, _os.path.dirname(__file__))
-        from test_fuzz import make_random_program
-        from stencilflow_tpu.backend.overlap import run_chain_overlap
-        rng = np.random.default_rng(730 + seed)
-        p = sft.parse_program(make_random_program(rng, seed),
-                              name=f"ovlf{seed}")
-        inputs = sft.load_input_arrays(p, seed=2)
-        ref = _oracle(p, inputs)
-        try:
-            got = run_chain_overlap(p, inputs, interpret=True)
-        except ValueError:
-            pytest.skip("shape outside overlap-mode scope")
-        for o in p.outputs:
-            np.testing.assert_allclose(got[o], ref[o], rtol=3e-5,
-                                       atol=1e-6)
-
-
-@pytest.mark.parametrize("mode", ["panel", "overlap"])
-def test_partial_rank_i_spanning_input(mode):
-    """(i, k)- and (i, j)-spanning inputs with B < 8: the whole-array
-    ingest path (Mosaic forbids (B, jk) blocks when B % 8 != 0)."""
-    spec = {
-        "inputs": {
-            "a": {"data": "random:-1,1", "data_type": "float32"},
-            "cik": {"data": "random:0,1", "data_type": "float32",
-                    "input_dims": ["i", "k"]},
-            "cij": {"data": "random:0,1", "data_type": "float32",
-                    "input_dims": ["i", "j"]}},
-        "outputs": ["y"], "dimensions": [8, 16, 32],
-        "program": {
-            "y": {"computation_string":
-                  "y = a[i,j,k] + cik[i,k] * a[i-1,j,k]"
-                  " + cij[i,j] * a[i,j+1,k]",
-                  "boundary_conditions": {
-                      "a": {"type": "constant", "value": 0.5}},
-                  "data_type": "float32"}}}
-    p = sft.parse_program(spec, name=f"partial_{mode}")
-    inputs = sft.load_input_arrays(p, seed=80)
-    ref = _oracle(p, inputs)["y"]
-    if mode == "panel":
-        from stencilflow_tpu.backend.panel import run_chain_panel as run
-    else:
-        from stencilflow_tpu.backend.overlap import run_chain_overlap as run
-    got = run(p, inputs, interpret=True, panel=4)["y"]
-    np.testing.assert_allclose(got, ref, rtol=3e-5, atol=1e-6)
-
 
 class TestPipelineMixedDtypeGate:
     def test_mixed_dtype_crossing_falls_back_to_replicated(self):
@@ -1059,145 +415,3 @@ class TestPipelineMixedDtypeGate:
                                    rtol=1e-6)
         with _pytest.raises(ValueError, match="dtype"):
             compile_pipeline_split(p, mesh, "p", io="sharded")
-
-
-def test_overlap_static_inputs_dont_bound_panel():
-    """Static (j,k) coefficient planes are read whole, outside the input
-    rings, so they must not inflate the panel bound or the shallow-chain
-    policy gate (round-2 review)."""
-    from stencilflow_tpu.backend import _try_stacked
-    from stencilflow_tpu.backend.overlap import run_chain_overlap
-    from stencilflow_tpu.frontend.analysis import ChainAnalysis
-    spec = {
-        "inputs": {"a": {"data": "random:-1,1", "data_type": "float32"},
-                   "c": {"data": "random:1,2", "data_type": "float32",
-                         "input_dims": ["j", "k"]}},
-        "outputs": ["s1"],
-        "dimensions": [8, 16, 16],
-        "program": {
-            "s0": {"computation_string":
-                   "s0 = c[j,k] * (a[i-1,j,k] + a[i+1,j,k])",
-                   "boundary_conditions":
-                   {"a": {"type": "constant", "value": 0.0},
-                    "c": {"type": "constant", "value": 1.0}},
-                   "data_type": "float32"},
-            "s1": {"computation_string":
-                   "s1 = c[j,k] + s0[i-1,j,k] + s0[i+1,j,k]",
-                   "boundary_conditions":
-                   {"s0": {"type": "constant", "value": 0.0},
-                    "c": {"type": "constant", "value": 1.0}},
-                   "data_type": "float32"},
-        },
-    }
-    p = sft.parse_program(spec, name="staticov")
-    inputs = sft.load_input_arrays(p, seed=50)
-    ref = _oracle(p, inputs)
-    # explicit panel=2: the streamed input's extent is 2 <= B; the static
-    # plane's transitive extent (3) must not reject the compile
-    got = run_chain_overlap(p, inputs, interpret=True, panel=2)
-    np.testing.assert_allclose(got["s1"], ref["s1"], rtol=2e-5,
-                               atol=1e-6)
-    # and the auto policy routes this shallow chain to overlap
-    fn, name = _try_stacked(p, ChainAnalysis.run(p), interpret=True)
-    assert name == "overlap"
-
-
-class TestRowStreaming2D:
-    """rotate_2d_to_rows + compile_chain_rows: 2-D programs stream as
-    rows of the rotated (J, 1, K) domain."""
-
-    def _mixed_2d(self, n=48):
-        spec = {
-            "inputs": {
-                "a": {"data": "random:-1,1", "data_type": "float32"},
-                "col": {"data": "random:-1,1", "data_type": "float32",
-                        "input_dims": ["j"]},
-                "row": {"data": "random:-1,1", "data_type": "float32",
-                        "input_dims": ["k"]},
-                "sc": {"data": 0.5, "data_type": "float32",
-                       "input_dims": []},
-            },
-            "outputs": ["c"],
-            "dimensions": [n, n],
-            "program": {
-                "b": {"computation_string":
-                      "b = 0.25*(a[j-1,k]+a[j+1,k]+a[j,k-1]+a[j,k+1])"
-                      " + col[j] + row[k-1]*sc",
-                      "boundary_conditions": {
-                          "a": {"type": "constant", "value": 1.0},
-                          "col": {"type": "constant", "value": 0.0},
-                          "row": {"type": "constant", "value": 0.0}},
-                      "data_type": "float32"},
-                "c": {"computation_string":
-                      "c = b[j,k] - 0.5*(b[j-2,k+1] + b[j+1,k-2])",
-                      "boundary_conditions": {"b": {"type": "copy"}},
-                      "data_type": "float32"},
-            },
-        }
-        return sft.parse_program(spec, name="mixed2d")
-
-    def test_rotated_oracle_bit_exact(self):
-        """The rotation is a pure iteration-space relabeling: the oracle
-        on the rotated program equals the unrotated oracle bitwise."""
-        from stencilflow_tpu.frontend.canonicalize import rotate_2d_to_rows
-        p = self._mixed_2d()
-        rot = rotate_2d_to_rows(p)
-        assert rot.dimensions == (48, 1, 48)
-        ins = sft.load_input_arrays(p, seed=3)
-        ref = np.asarray(sft.run_interpreter(p, ins)["c"])
-        got = np.asarray(sft.run_interpreter(rot, ins)["c"])
-        np.testing.assert_array_equal(got.reshape(ref.shape), ref)
-
-    @pytest.mark.parametrize("backend", ["panel", "stream", "overlap"])
-    def test_rows_backends_match_oracle(self, backend):
-        """Mixed-rank inputs (j-span -> i-span rings, k-span, scalar),
-        copy BC, asymmetric offsets through both row backends."""
-        from stencilflow_tpu.backend import compile_chain_rows
-        p = self._mixed_2d()
-        ins = sft.load_input_arrays(p, seed=3)
-        ref = np.asarray(sft.run_interpreter(p, ins)["c"], np.float64)
-        fn, name = compile_chain_rows(p, interpret=True, backend=backend)
-        assert name == f"rows+{backend}"
-        got = np.asarray(fn({k: jnp.asarray(v) for k, v in ins.items()})["c"])
-        assert got.shape == ref.shape
-        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6)
-
-    def test_rows_jacobi2d_reference_shape(self):
-        from stencilflow_tpu.backend import compile_chain_rows
-        p = sft.parse_program(jacobi(2, 64, iterations=4), name="j2d")
-        ins = sft.load_input_arrays(p, seed=0)
-        out = p.outputs[0]
-        ref = np.asarray(sft.run_interpreter(p, ins)[out], np.float64)
-        fn, _ = compile_chain_rows(p, interpret=True, backend="panel")
-        got = np.asarray(fn({k: jnp.asarray(v) for k, v in ins.items()})[out])
-        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6)
-
-    def test_rejects_non_2d(self):
-        from stencilflow_tpu.frontend.canonicalize import rotate_2d_to_rows
-        p3 = sft.parse_program(jacobi(3, 8, iterations=2), name="j3")
-        with pytest.raises(ValueError):
-            rotate_2d_to_rows(p3)
-
-    def test_panel_auto_cascades_under_budget(self):
-        """Auto panels step down to the largest affordable divisor of I
-        instead of raising — rotated 2-D domains (J=1) would otherwise
-        ask for B=1024 and always overflow the ring budget."""
-        from stencilflow_tpu.backend.panel import compile_chain_panel
-        from stencilflow_tpu.frontend.canonicalize import rotate_2d_to_rows
-        p = sft.parse_program(jacobi(2, 64, iterations=4), name="j2c")
-        rot = rotate_2d_to_rows(p)
-        # generous budget: B = min(1024, I//2) = 32 fits outright
-        compile_chain_panel(rot, interpret=True)
-        assert compile_chain_panel.last_config["panel"] == 32
-        # tight budget: cascade to a smaller divisor, still compiles
-        fn = compile_chain_panel(rot, interpret=True,
-                                 vmem_budget=1 << 16)
-        b = compile_chain_panel.last_config["panel"]
-        assert 1 <= b < 32 and 64 % b == 0
-        ins = sft.load_input_arrays(p, seed=0)
-        out = p.outputs[0]
-        ref = np.asarray(sft.run_interpreter(p, ins)[out], np.float64)
-        got = np.asarray(fn({k: jnp.asarray(v) for k, v in
-                             ins.items()})[out])
-        np.testing.assert_allclose(got.reshape(ref.shape), ref,
-                                   rtol=2e-5, atol=1e-6)

@@ -110,22 +110,20 @@ class TestTileBodyOverlap:
         np.testing.assert_allclose(out["s1"], ref, rtol=1e-6)
 
 
-class TestStreamBodyOverlap:
+class TestIShardedOverlap:
     @pytest.mark.parametrize("boundary", ["constant", "copy", "shrink"])
-    def test_i_sharded_stream(self, boundary):
+    def test_i_sharded_diffusion(self, boundary):
         spec = synthesize_stencil(num_stages=2, dimensions=(16, 8, 32),
                                   shape="diffusion", boundary=boundary)
-        p = sft.parse_program(spec, name=f"ov_stream_{boundary}")
+        p = sft.parse_program(spec, name=f"ov_ishard_{boundary}")
         inputs = sft.load_input_arrays(p, seed=81)
         out_name = p.outputs[0]
         ref = _oracle(p, inputs)[out_name]
         mesh = Mesh(np.array(jax.devices()[:2]), ("x",))
         fn, plan = compile_sharded_chain(p, mesh, ("x", None, None),
-                                         local_backend="stream",
-                                         interpret=True,
                                          comm_overlap=True)
         cfg = compile_sharded_chain.last_config
-        assert cfg["backend"] == "stream" and cfg["comm_overlap"], cfg
+        assert cfg["comm_overlap"], cfg
         sh = plan.input_shardings()
         dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
                   for n, v in inputs.items()}
@@ -137,8 +135,7 @@ class TestStreamBodyOverlap:
         reach appears on NO input path, so the exchange/widening halo
         must come from stage_halo too (chain_halo fix, fuzz seed 91005
         — the un-widened shard read unevaluated ring planes at the
-        seam: NaN under interpret).  Both local backends, overlap on
-        and off, must match the oracle exactly."""
+        seam).  Overlap on and off must match the oracle exactly."""
         spec = {
             "inputs": {"a": {"data": "random:-1,1",
                              "data_type": "float32"}},
@@ -156,48 +153,27 @@ class TestStreamBodyOverlap:
         inputs = sft.load_input_arrays(p, seed=5)
         ref = _oracle(p, inputs)["s1"]
         mesh = Mesh(np.array(jax.devices()[:2]), ("x",))
-        for lb in ("stream", "xla"):
-            for ov in (False, True):
-                fn, plan = compile_sharded_chain(
-                    p, mesh, ("x", None, None), local_backend=lb,
-                    interpret=True, comm_overlap=ov)
-                sh = plan.input_shardings()
-                dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
-                          for n, v in inputs.items()}
-                out = np.asarray(fn(dev_in)["s1"])
-                assert np.isfinite(out).all(), (lb, ov)
-                np.testing.assert_allclose(out, ref, rtol=1e-6,
-                                           err_msg=f"{lb} overlap={ov}")
+        for ov in (False, True):
+            fn, plan = compile_sharded_chain(
+                p, mesh, ("x", None, None), comm_overlap=ov)
+            sh = plan.input_shardings()
+            dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
+                      for n, v in inputs.items()}
+            out = np.asarray(fn(dev_in)["s1"])
+            assert np.isfinite(out).all(), ov
+            np.testing.assert_allclose(out, ref, rtol=1e-6,
+                                       err_msg=f"overlap={ov}")
 
-    def test_i_sharded_stream_deep_chain(self):
+    def test_i_sharded_deep_chain(self):
         # 4 stages -> halo 4; blocks of 16 planes leave an 8-plane interior
         p = _jacobi3d(size=32, iters=4)
         inputs = sft.load_input_arrays(p, seed=82)
         ref = _oracle(p, inputs)["s3"]
         mesh = Mesh(np.array(jax.devices()[:2]), ("x",))
         fn, plan = compile_sharded_chain(p, mesh, ("x", None, None),
-                                         local_backend="stream",
-                                         interpret=True,
                                          comm_overlap=True)
         sh = plan.input_shardings()
         dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
                   for n, v in inputs.items()}
         out = np.asarray(fn(dev_in)["s3"])
         np.testing.assert_allclose(out, ref, rtol=1e-6)
-
-    def test_jk_sharded_stream_raises(self):
-        p = _jacobi3d(size=16, iters=2)
-        mesh = Mesh(np.array(jax.devices()[:2]), ("x",))
-        with pytest.raises(ValueError, match="i-only"):
-            compile_sharded_chain(p, mesh, (None, "x", None),
-                                  local_backend="stream",
-                                  interpret=True, comm_overlap=True)
-
-    def test_no_interior_raises(self):
-        # block 4 with halo 2: 2h == B, no interior plane for the stream
-        p = _jacobi3d(size=8, iters=2)
-        mesh = Mesh(np.array(jax.devices()[:2]), ("x",))
-        with pytest.raises(ValueError, match="interior"):
-            compile_sharded_chain(p, mesh, ("x", None, None),
-                                  local_backend="stream",
-                                  interpret=True, comm_overlap=True)

@@ -37,19 +37,34 @@ class TestDriver:
                           halo=2, save_results=False)
         assert res.verified_against_reference
 
-    def test_panel_backend_through_driver(self):
+    @pytest.mark.parametrize("backend,name", [
+        ("auto", "xla"), ("xla", "xla"), ("interpreter", "interpreter")])
+    def test_backends_through_driver(self, backend, name):
         spec = jacobi(3, 8, iterations=2)
-        res = run_program(spec, "emulation", backend="panel",
+        res = run_program(spec, "emulation", backend=backend,
                           compare_to_reference=True, save_results=False)
-        assert res.backend == "panel"
+        assert res.backend == name
         assert res.verified_against_reference
 
-    def test_overlap_backend_through_driver(self):
-        spec = jacobi(3, 8, iterations=2)
-        res = run_program(spec, "emulation", backend="overlap",
-                          compare_to_reference=True, save_results=False)
-        assert res.backend == "overlap"
-        assert res.verified_against_reference
+    @pytest.mark.parametrize("kw,match", [
+        ({"backend": "stream"}, "unknown backend"),
+        ({"mode": "simulation"}, "unknown mode")])
+    def test_unknown_backend_or_mode_raises(self, kw, match):
+        with pytest.raises(ValueError, match=match):
+            run_program(jacobi(2, 8, iterations=1), save_results=False,
+                        **kw)
+
+    def test_hardware_mode_needs_gpu(self):
+        """hardware mode never falls back to the CPU."""
+        from stencilflow_tpu.device import NoGPUError
+        with pytest.raises(NoGPUError, match="no GPU"):
+            run_program(jacobi(2, 8, iterations=1), "hardware",
+                        save_results=False)
+
+    def test_cli_hardware_mode_exits_2_without_gpu(self, j2d_file,
+                                                   capsys):
+        assert cli_main(["run", j2d_file, "hardware"]) == 2
+        assert "needs a GPU" in capsys.readouterr().err
 
     def test_skip_execution_returns_sim(self):
         spec = jacobi(2, 8, iterations=1)
@@ -192,7 +207,7 @@ class TestCLI:
 class TestCLIMore:
     def test_compile_command(self, j2d_file, tmp_path, capsys):
         out = str(tmp_path / "art.stablehlo.txt")
-        rc = cli_main(["compile", j2d_file, "--emulation", "-o", out])
+        rc = cli_main(["compile", j2d_file, "-o", out])
         assert rc == 0
         text = open(out).read()
         assert "module" in text and len(text) > 1000
@@ -266,40 +281,41 @@ class TestDriverReviewRegressions:
         run_program(p, synthetic_reads=True, save_results=False)
         assert p.inputs["a"].data == before
 
-    def test_mxu_runs_verify_at_their_envelope(self):
-        """An MXU-lowered run verifies at 3e-5 (its guaranteed bound),
-        not the generic 1e-5.  Positive data keeps outputs away from
+    def test_box_chain_verifies_at_default_tolerance(self):
+        """A wide radius-2 box chain through the fused-XLA path verifies
+        at config.VERIFY_RTOL.  Positive data keeps outputs away from
         zero (the comparator is relative-only, like the reference's)."""
-        from stencilflow_tpu.backend.stream import compile_chain_stream
         from stencilflow_tpu.driver import run_program
         spec = synthesize_stencil(num_stages=2, dimensions=(4, 16, 16),
                                   shape="box", extent=2,
                                   seed_data="random:1,2")
-        p = sft.parse_program(spec, name="mxuverify")
-        res = run_program(p, mode="emulation", backend="stream",
-                          compare_to_reference=True, save_results=False)
-        assert compile_chain_stream.last_config["mxu_stages"]
+        p = sft.parse_program(spec, name="boxverify")
+        res = run_program(p, mode="emulation", compare_to_reference=True,
+                          save_results=False)
+        assert res.backend == "xla"
         assert res.verified_against_reference
 
-    def test_bf16_mxu_runs_verify_at_bf16_envelope(self):
-        """The opt-in single-pass bf16 mode verifies at its documented
-        bf16 envelope (config.BF16_VERIFY_RTOL); an explicit tolerance
-        overrides any auto-widening."""
-        from stencilflow_tpu.backend.stream import compile_chain_stream
+    def test_explicit_tolerance_overrides_default(self, monkeypatch):
+        """A 1e-6 relative deviation passes the default 1e-5 and fails an
+        explicit tolerance of 1e-7."""
+        import stencilflow_tpu.driver as drv
         from stencilflow_tpu.driver import VerificationError, run_program
         spec = synthesize_stencil(num_stages=2, dimensions=(4, 16, 16),
                                   shape="box", extent=2,
                                   seed_data="random:1,2")
-        p = sft.parse_program(spec, name="bf16verify")
-        res = run_program(p, mode="emulation", backend="stream",
-                          mxu_precision="bf16",
-                          compare_to_reference=True, save_results=False)
-        assert compile_chain_stream.last_config["mxu_stages"]
+        p = sft.parse_program(spec, name="tolverify")
+        orig = drv.run_interpreter
+
+        def nudged(program, inputs):
+            return {k: np.asarray(v) * (1 + 1e-6)
+                    for k, v in orig(program, inputs).items()}
+
+        monkeypatch.setattr(drv, "run_interpreter", nudged)
+        res = run_program(p, compare_to_reference=True, save_results=False)
         assert res.verified_against_reference
         with pytest.raises(VerificationError):
-            run_program(p, mode="emulation", backend="stream",
-                        mxu_precision="bf16", tolerance=1e-7,
-                        compare_to_reference=True, save_results=False)
+            run_program(p, tolerance=1e-7, compare_to_reference=True,
+                        save_results=False)
 
     def test_scalar_file_input_loads_zero_d(self, tmp_path):
         from stencilflow_tpu.data import load_array

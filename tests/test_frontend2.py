@@ -339,12 +339,12 @@ class TestOpListFrontend:
                                       np.asarray(out3["b"]))
 
     def test_backends_accept_oplist_program(self):
-        from stencilflow_tpu.backend.stream import run_chain_stream
+        from stencilflow_tpu.backend.xla import run_chain
         from stencilflow_tpu.sim.native import NativeSimulator
         p = self._program("oplist_be")
         ins = sft.load_input_arrays(p, seed=0)
         ref = sft.run_interpreter(p, ins)
-        got = run_chain_stream(p, ins, interpret=True)
+        got = run_chain(p, ins)
         np.testing.assert_allclose(np.asarray(got["b"]),
                                    np.asarray(ref["b"]),
                                    rtol=3e-6, atol=1e-7)

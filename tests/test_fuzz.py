@@ -2,14 +2,13 @@
 
 Random DAGs (forks/joins, ternaries, min/max, mixed offsets and BCs, a
 lower-dimensional input and a scalar) evaluated by the numpy oracle, the
-fused-XLA backend, the streaming Pallas kernel (interpret), and the native
-C++ simulator — all must agree.  This is the dialect-wide generalization of
+fused-XLA backend (single-device, sharded, pipelined, out of core) and the
+native C++ simulator — all must agree.  This is the dialect-wide generalization of
 the reference's fixture-based ProgramTest sweep."""
 import numpy as np
 import pytest
 
 import stencilflow_tpu as sft
-from stencilflow_tpu.backend.stream import run_chain_stream
 from stencilflow_tpu.backend.xla import run_chain
 from stencilflow_tpu.sim.native import NativeSimulator
 
@@ -108,7 +107,7 @@ def make_random_program(rng: np.random.Generator, seed_id: int,
 
 def _deep_program(rng, stages, max_r=3):
     """Deep chain with random radii and occasional long-range reconvergence
-    (stresses lag/ring-depth algebra in the streaming backend)."""
+    (stresses the cumulative-halo and delay algebra)."""
     dims = [int(rng.integers(8, 13)) for _ in range(3)]
     prog = {}
     avail = ["a"]
@@ -148,15 +147,15 @@ def test_deep_chain_stream_and_sim(seed):
     inputs = sft.load_input_arrays(p, seed=seed)
     out = p.outputs[0]
     ref = np.asarray(sft.run_interpreter(p, inputs)[out], dtype=np.float64)
-    got = run_chain_stream(p, inputs, interpret=True)[out]
+    got = run_chain(p, inputs)[out]
     np.testing.assert_allclose(got, ref, rtol=3e-5, atol=1e-6)
     gs = NativeSimulator(p).run(inputs).outputs[out]
     np.testing.assert_allclose(gs, ref, rtol=3e-5, atol=1e-6)
 
 
 def _affine_program(rng, stages):
-    """Random wide-footprint affine chains (MXU-eligible stages mixed with
-    narrow VPU ones), constant BCs with random values."""
+    """Random wide-footprint affine chains (wide and narrow stages mixed),
+    constant BCs with random values."""
     dims = [int(rng.integers(3, 6)), int(rng.choice([24, 32])),
             int(rng.choice([16, 24, 32]))]
     prog = {}
@@ -190,80 +189,47 @@ def _affine_program(rng, stages):
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_affine_mxu_configurations(seed):
-    """The MXU lowering across its deployment modes — untiled, forced
-    j-tiled (origin-aware stacked matrices), and mesh-sharded — must all
-    match the oracle on random affine chains."""
+def test_random_affine_chains(seed):
+    """Random wide-footprint affine chains through the single-device and
+    mesh-sharded fused-XLA paths, and their adjoints against autodiff."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
-    from stencilflow_tpu.backend.stream import (StreamPlan,
-                                                compile_chain_stream)
-    from stencilflow_tpu.frontend.analysis import ChainAnalysis
     from stencilflow_tpu.parallel.domain import compile_sharded_chain
 
     rng = np.random.default_rng(3000 + seed)
     spec = _affine_program(rng, int(rng.integers(2, 4)))
     p = sft.parse_program(spec, name=f"affine{seed}")
     inputs = sft.load_input_arrays(p, seed=seed)
-    jins = {k: jnp.asarray(v) for k, v in inputs.items()}
     out = p.outputs[0]
     ref = np.asarray(sft.run_interpreter(p, inputs)[out], dtype=np.float64)
 
-    got = np.asarray(compile_chain_stream(p, interpret=True)(jins)[out])
+    got = np.asarray(run_chain(p, inputs)[out])
     np.testing.assert_allclose(got, ref, rtol=3e-5, atol=1e-6,
-                               err_msg="untiled stream")
-
-    # a budget below the untiled need forces the tiling ladder
-    untiled = StreamPlan.build(ChainAnalysis.run(p)).vmem_bytes(p)
-    try:
-        fn2 = compile_chain_stream(p, interpret=True,
-                                   vmem_budget=int(untiled / 0.7 * 0.6))
-    except ValueError:
-        fn2 = None   # no tile fits this chain's halo; acceptable
-    if fn2 is not None:
-        got2 = np.asarray(fn2(jins)[out])
-        np.testing.assert_allclose(got2, ref, rtol=3e-5, atol=1e-6,
-                                   err_msg="tiled stream")
+                               err_msg="single device")
 
     devs = np.array(jax.devices()[:4]).reshape(2, 2)
     mesh = Mesh(devs, ("x", "y"))
-    fn3, plan3 = compile_sharded_chain(p, mesh, (None, "x", "y"),
-                                       local_backend="stream",
-                                       interpret=True)
+    fn3, plan3 = compile_sharded_chain(p, mesh, (None, "x", "y"))
     sh = plan3.input_shardings()
     dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
               for n, v in inputs.items()}
     got3 = np.asarray(fn3(dev_in)[out])
-    np.testing.assert_allclose(got3, ref, rtol=3e-5, atol=1e-6,
-                               err_msg="sharded stream")
+    assert_close_modulo_reassociation(got3, ref, spec, inputs, out,
+                                      "sharded (j,k)")
 
-
-@pytest.mark.parametrize("seed", range(4))
-def test_affine_mxu_bf16_envelope(seed):
-    """The opt-in single-pass bf16 mode stays within its documented
-    envelope (config.BF16_VERIFY_RTOL + bf16-scale atol) on random
-    affine chains — the accuracy contract behind `--mxu-precision bf16`."""
-    import jax.numpy as jnp
-    from stencilflow_tpu.backend.stream import compile_chain_stream
-
-    rng = np.random.default_rng(7100 + seed)
-    spec = _affine_program(rng, int(rng.integers(2, 4)))
-    p = sft.parse_program(spec, name=f"affbf16_{seed}")
-    inputs = sft.load_input_arrays(p, seed=seed)
-    jins = {k: jnp.asarray(v) for k, v in inputs.items()}
-    out = p.outputs[0]
-    ref = np.asarray(sft.run_interpreter(p, inputs)[out], dtype=np.float64)
-    got = np.asarray(compile_chain_stream(p, interpret=True,
-                                          mxu_precision="bf16")(jins)[out])
-    np.testing.assert_allclose(got, ref, rtol=2e-2, atol=5e-3,
-                               err_msg="bf16 single-pass stream")
+    vg = sft.value_and_grad(p)(inputs)
+    fvg = sft.fast_value_and_grad(p)(inputs)
+    np.testing.assert_allclose(float(fvg[0]), float(vg[0]), rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(fvg[1]["a"]),
+                               np.asarray(vg[1]["a"]), rtol=1e-4,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_random_multi_output_programs(seed):
     """Random DAGs exposing TWO outputs at different pipeline depths
-    (multi-output emit paths in every engine)."""
+    (multi-output paths in every engine)."""
     rng = np.random.default_rng(8000 + seed)
     spec = make_random_program(rng, seed)
     kernels = list(spec["program"])
@@ -278,8 +244,8 @@ def test_random_multi_output_programs(seed):
            for o, v in sft.run_interpreter(p, inputs).items()}
     for name, engine in [
             ("xla", lambda: run_chain(p, inputs)),
-            ("stream", lambda: run_chain_stream(p, inputs,
-                                                interpret=True)),
+            ("xla interpreter strategy",
+             lambda: run_chain(p, inputs, strategy="interpreter")),
             ("sim", lambda: NativeSimulator(p).run(inputs).outputs)]:
         got = engine()
         for o in p.outputs:
@@ -302,27 +268,13 @@ def test_random_program_all_engines(seed):
     np.testing.assert_allclose(got_xla, ref, rtol=2e-5, atol=1e-6,
                                err_msg="xla backend")
 
-    got_stream = run_chain_stream(p, inputs, interpret=True)[out]
-    np.testing.assert_allclose(got_stream, ref, rtol=2e-5, atol=1e-6,
-                               err_msg="stream backend")
+    got_interp = run_chain(p, inputs, strategy="interpreter")[out]
+    np.testing.assert_allclose(got_interp, ref, rtol=2e-5, atol=1e-6,
+                               err_msg="xla interpreter strategy")
 
     got_sim = NativeSimulator(p).run(inputs).outputs[out]
     np.testing.assert_allclose(got_sim, ref, rtol=2e-5, atol=1e-6,
                                err_msg="native simulator")
-
-    # stacked lowerings (panel is the default untiled-VPU backend);
-    # random draws outside their scope (i-offset > B, budget) fall back
-    # to stream in production — here they just skip the comparison
-    from stencilflow_tpu.backend.overlap import run_chain_overlap
-    from stencilflow_tpu.backend.panel import run_chain_panel
-    for name, engine in [("panel", run_chain_panel),
-                         ("overlap", run_chain_overlap)]:
-        try:
-            got = engine(p, inputs, interpret=True)[out]
-        except ValueError:
-            continue
-        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6,
-                                   err_msg=f"{name} backend")
 
 
 def assert_close_modulo_reassociation(got, ref, spec, inputs, out,
@@ -448,9 +400,9 @@ def make_mixed_dtype_program(rng, nondyadic: bool = False,
 @pytest.mark.parametrize("seed", range(8))
 def test_random_mixed_dtype_programs(seed):
     """Cross-dtype edges through every engine: oracle, Python machine,
-    native C++ simulator, fused XLA, streaming Pallas (interpret).
+    native C++ simulator, fused XLA (tile and interpreter strategies).
     Integer/bool outputs must be bit-equal (incl. wraparound); float
-    outputs within the usual streaming tolerance."""
+    outputs within the usual tolerance."""
     import warnings
     from stencilflow_tpu.sim.machine import Simulator
     rng = np.random.default_rng(42000 + seed)
@@ -466,20 +418,9 @@ def test_random_mixed_dtype_programs(seed):
                ("native simulator",
                 np.asarray(NativeSimulator(p).run(inputs).outputs[out])),
                ("xla backend", np.asarray(run_chain(p, inputs)[out])),
-               ("stream backend",
-                np.asarray(run_chain_stream(p, inputs,
-                                            interpret=True)[out]))]
-    # stacked lowerings where the random draw is in scope (same pattern
-    # as test_random_program_all_engines)
-    from stencilflow_tpu.backend.overlap import run_chain_overlap
-    from stencilflow_tpu.backend.panel import run_chain_panel
-    for name, engine in [("panel", run_chain_panel),
-                         ("overlap", run_chain_overlap)]:
-        try:
-            got = engine(p, inputs, interpret=True)[out]
-        except ValueError:
-            continue
-        engines.append((f"{name} backend", np.asarray(got)))
+               ("xla interpreter strategy",
+                np.asarray(run_chain(p, inputs,
+                                     strategy="interpreter")[out]))]
     exact = ref.dtype.kind in "ib"
     for label, got in engines:
         assert got.dtype == ref.dtype, label
@@ -502,7 +443,7 @@ def test_random_mixed_promotion_programs(seed):
     FMA (~1 f32 ulp, a platform artifact orthogonal to promotion —
     tests/test_mixed_promotion.py pins the spec itself discretely)."""
     import warnings
-    from stencilflow_tpu.sim.machine import Simulator
+    from stencilflow_tpu.sim.machine import SimulationError, Simulator
     rng = np.random.default_rng(52000 + seed)
     spec = make_mixed_dtype_program(rng, nondyadic=True,
                                     amplified_consumer=True)
@@ -524,8 +465,8 @@ def test_random_mixed_promotion_programs(seed):
             pass   # outside the native scope (bf16 mixing etc.)
         for label, got in [
                 ("xla", np.asarray(run_chain(p, inputs)[out])),
-                ("stream", np.asarray(run_chain_stream(
-                    p, inputs, interpret=True)[out]))]:
+                ("xla interpreter strategy", np.asarray(run_chain(
+                    p, inputs, strategy="interpreter")[out]))]:
             assert got.dtype == ref.dtype, label
             if ref.dtype.kind in "ib":
                 d = np.abs(got.astype(np.int64) - ref.astype(np.int64))
@@ -537,135 +478,80 @@ def test_random_mixed_promotion_programs(seed):
 
 
 @pytest.mark.parametrize("seed", range(10))
-def test_random_2d_program_rows(seed):
-    """2-D random DAGs through the row-streaming engine
-    (rotate_2d_to_rows + panel / plane streamer) vs the oracle.  Rows is
-    the RESCUE path — it fires exactly when no other 2-D configuration
-    fits — so it gets the same zero-failure fuzz bar as the engines in
-    test_random_program_all_engines (VERDICT r2 weak #5)."""
+def test_random_2d_programs(seed):
+    """2-D random DAGs (padded to (1, J, K)) through the fused-XLA tile
+    and interpreter strategies and the (j, k)-sharded body vs the
+    oracle."""
+    import jax
     import jax.numpy as jnp
-
-    from stencilflow_tpu.backend import compile_chain_rows
+    from jax.sharding import Mesh
+    from stencilflow_tpu.backend.xla import chain_halo
+    from stencilflow_tpu.frontend.analysis import ChainAnalysis
+    from stencilflow_tpu.parallel.domain import compile_sharded_chain
 
     rng = np.random.default_rng(4200 + seed)
     spec = make_random_program(rng, seed, ndim=2)
-    p = sft.parse_program(spec, name=f"rows{seed}")
+    halo = chain_halo(ChainAnalysis.run(sft.parse_program(spec,
+                                                          name="probe")))
+    # every 2-way-sharded block must be wider than the halo
+    spec["dimensions"] = [max(d, 2 * (h + 1))
+                          for d, h in zip(spec["dimensions"], halo[1:])]
+    spec["dimensions"] = [d + d % 2 for d in spec["dimensions"]]
+    p = sft.parse_program(spec, name=f"r2d{seed}")
     inputs = sft.load_input_arrays(p, seed=seed)
-    jins = {k: jnp.asarray(v) for k, v in inputs.items()}
     out = p.outputs[0]
     ref = np.asarray(sft.run_interpreter(p, inputs)[out], np.float64)
-
-    # the plane streamer must always be in scope for a rotated 2-D
-    # program (rows' rescue contract); panel may reject odd row counts
-    fn, name = compile_chain_rows(p, interpret=True, backend="stream")
-    got = np.asarray(fn(jins)[out])
-    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6,
-                               err_msg=f"{name}")
-    for panel in (0, 2):
-        try:
-            fnp, namep = compile_chain_rows(p, interpret=True,
-                                            backend="panel", panel=panel)
-        except ValueError:
-            continue   # panel must divide the row count
-        gotp = np.asarray(fnp(jins)[out])
-        np.testing.assert_allclose(gotp, ref, rtol=2e-5, atol=1e-6,
-                                   err_msg=f"{namep} panel={panel}")
+    for strategy in ("tile", "interpreter"):
+        got = np.asarray(run_chain(p, inputs, strategy=strategy)[out])
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6,
+                                   err_msg=strategy)
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("x", "y"))
+    fn, plan = compile_sharded_chain(p, mesh, (None, "x", "y"))
+    sh = plan.input_shardings()
+    got = np.asarray(fn({n: jax.device_put(jnp.asarray(v), sh[n])
+                         for n, v in inputs.items()})[out])
+    assert_close_modulo_reassociation(got, ref, spec, inputs, out,
+                                      "sharded (j,k)")
 
 
 @pytest.mark.parametrize("seed", [0, 3])
-def test_random_2d_rows_outofcore_composition(seed):
-    """Out-of-core host chunking composes with row rotation: the rotated
-    program's row axis is the chunked i axis, so arbitrarily tall 2-D
-    domains stream through bounded device memory."""
+def test_random_outofcore_and_pipeline(seed):
+    """Random 3-D DAGs through the out-of-core chunk body and the 2-way
+    pipeline split vs the oracle."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
     from stencilflow_tpu.backend.xla import chain_halo
     from stencilflow_tpu.frontend.analysis import ChainAnalysis
-    from stencilflow_tpu.frontend.canonicalize import rotate_2d_to_rows
     from stencilflow_tpu.outofcore import run_chunked
+    from stencilflow_tpu.parallel.pipeline import compile_pipeline_split
 
     rng = np.random.default_rng(4300 + seed)
-    spec = make_random_program(rng, seed, ndim=2)
-    # each of the 2 chunks must keep an interior after halo widening
-    rot0 = rotate_2d_to_rows(sft.parse_program(spec, name="probe"))
-    h = chain_halo(ChainAnalysis.run(rot0))[0]
-    spec["dimensions"] = [2 * (h + 2), int(spec["dimensions"][1])]
-    p = sft.parse_program(spec, name=f"rowsooc{seed}")
-    inputs = sft.load_input_arrays(p, seed=seed)
-    out = p.outputs[0]
-    ref = np.asarray(sft.run_interpreter(p, inputs)[out], np.float64)
-
-    rot = rotate_2d_to_rows(p)
-    got = run_chunked(rot, inputs, chunks=2, backend="xla")[out]
-    np.testing.assert_allclose(got.reshape(ref.shape), ref,
-                               rtol=2e-5, atol=1e-6)
-
-
-@pytest.mark.parametrize("seed", range(6))
-def test_random_jtiled_interior_split(seed):
-    """Forced j-tiling through random DAGs with the interior-tile split
-    on AND off — both must match the oracle.  The split wraps the whole
-    stage loop in pl.when interior/edge regions and drops the cut-dim
-    OOB mask terms on interior tiles (stream.py TILE_INTERIOR_SPLIT);
-    random BCs/offsets/forks are exactly the inputs that would expose a
-    wrong interior predicate."""
-    import jax.numpy as jnp
-
-    import stencilflow_tpu.backend.stream as st
-    from stencilflow_tpu.backend.stream import (StreamPlan,
-                                                compile_chain_stream)
-    from stencilflow_tpu.frontend.analysis import ChainAnalysis
-
-    from stencilflow_tpu.backend.xla import chain_halo
-
-    rng = np.random.default_rng(8200 + seed)
     spec = make_random_program(rng, seed, ndim=3)
-    # widen j so a j-tile below the untiled plane exists for the halo
-    spec["dimensions"][1] = int(rng.choice([48, 64]))
-    p = sft.parse_program(spec, name=f"jtile{seed}")
+    # each of the 2 chunks must keep an interior after halo widening
+    h = chain_halo(ChainAnalysis.run(sft.parse_program(spec,
+                                                       name="probe")))[0]
+    spec["dimensions"][0] = 2 * (h + 2)
+    p = sft.parse_program(spec, name=f"ooc{seed}")
     inputs = sft.load_input_arrays(p, seed=seed)
-    jins = {k: jnp.asarray(v) for k, v in inputs.items()}
     out = p.outputs[0]
     ref = np.asarray(sft.run_interpreter(p, inputs)[out], np.float64)
-
-    # budget strictly between the coarsest tiled need and the untiled
-    # need, so the ladder MUST pick a j-tile (the same totals it sums)
-    an = ChainAnalysis.run(p)
-    hjt_pad, splits = st.jtile_splits(p.dimensions[1],
-                                      chain_halo(an)[1])
-    assert splits, "J was chosen so a legal tile always exists"
-    tiles, core = splits[0]
-
-    def _total(plan):
-        return plan.vmem_bytes(p) + plan.io_window_bytes(p)
-
-    untiled = _total(StreamPlan.build(an))
-    tiled = _total(StreamPlan.build(an, local_jk=(core, p.dimensions[2]),
-                                    halo_jk=(hjt_pad, 0)))
-    if tiled >= untiled:
-        return   # halo widening dominates at this shape; nothing to tile
-    budget = int((tiled + untiled) / 2 / 0.7)
-    for split in (True, False):
-        st.TILE_INTERIOR_SPLIT = split
-        try:
-            fn = compile_chain_stream(p, interpret=True, mxu="off",
-                                      vmem_budget=budget)
-            assert compile_chain_stream.last_config["jtiles"] > 1
-            got = np.asarray(fn(jins)[out])
-        finally:
-            st.TILE_INTERIOR_SPLIT = True
-        # reassociation-aware: the pl.when split regions compile the
-        # stage math separately, so rare cancellation cells can part
-        # ways from the oracle by >tol while staying CLOSER to the f64
-        # truth (soak seed 91012: 1/1792 cells, |got-truth| 5.3e-7 vs
-        # |oracle-truth| 7.6e-7) — same comparator as the sharded legs
-        assert_close_modulo_reassociation(got, ref, spec, inputs, out,
-                                          f"jtiled stream split={split}")
+    got = run_chunked(p, inputs, chunks=2)[out]
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6,
+                               err_msg="out of core")
+    mesh = Mesh(np.array(jax.devices()[:2]), ("p",))
+    fn, _ = compile_pipeline_split(p, mesh, "p", io="replicated")
+    got = np.asarray(fn({k: jnp.asarray(v) for k, v in inputs.items()})[out])
+    assert_close_modulo_reassociation(got, ref, spec, inputs, out,
+                                      "pipeline")
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_random_program_comm_overlap(seed):
-    """Random DAGs through the comm/compute-overlapped sharded bodies
-    (fused-XLA any-dim sharding; streaming i-only) vs the oracle —
-    the fuzz generalization of test_comm_overlap's crafted cases."""
+    """Random DAGs through the comm/compute-overlapped sharded body
+    ((j, k) and i sharding) vs the oracle — the fuzz generalization of
+    test_comm_overlap's crafted cases."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -689,7 +575,6 @@ def test_random_program_comm_overlap(seed):
     devs = np.array(jax.devices()[:4]).reshape(2, 2)
     mesh = Mesh(devs, ("x", "y"))
     fn, plan = compile_sharded_chain(p, mesh, (None, "x", "y"),
-                                     local_backend="xla",
                                      comm_overlap=True)
     sh = plan.input_shardings()
     dev_in = {n: jax.device_put(jnp.asarray(v), sh[n])
@@ -701,15 +586,13 @@ def test_random_program_comm_overlap(seed):
     if len(p.raw_dimensions) == 3 and halo[0] > 0:
         mesh1 = Mesh(np.array(jax.devices()[:2]), ("x",))
         fn1, plan1 = compile_sharded_chain(p, mesh1, ("x", None, None),
-                                           local_backend="stream",
-                                           interpret=True,
                                            comm_overlap=True)
         sh1 = plan1.input_shardings()
         dev1 = {n: jax.device_put(jnp.asarray(v), sh1[n])
                 for n, v in inputs.items()}
         got1 = np.asarray(fn1(dev1)[out])
         assert_close_modulo_reassociation(got1, ref, spec, inputs, out,
-                                          "stream comm_overlap (i)")
+                                          "xla comm_overlap (i)")
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -717,10 +600,7 @@ def test_random_mixed_dtype_sharded(seed):
     """Mixed-dtype chains (bool/int/float edges, incl. bool fields read
     at i-offsets) through the domain-decomposed path on the CPU mesh:
     int/bool halo exchange and the sharded bodies must match the oracle
-    bit-exactly for int/bool outputs (round 5 lifted the sharded local
-    path's bool-i-history gate — stream rings carry 0/1 int32 with
-    ``!= 0`` at read exit, so these programs now take the compiled
-    stream body on real meshes too)."""
+    bit-exactly for int/bool outputs."""
     import warnings
 
     import jax
@@ -757,13 +637,10 @@ def test_random_mixed_dtype_sharded(seed):
 
     devs = np.array(jax.devices()[:4]).reshape(2, 2)
     mesh = Mesh(devs, ("x", "y"))
-    fn, plan = compile_sharded_chain(p, mesh, (None, "x", "y"),
-                                     local_backend="xla")
+    fn, plan = compile_sharded_chain(p, mesh, (None, "x", "y"))
     check(fn, plan, "xla sharded (j,k)")
 
     if halo[0] > 0:
         mesh1 = Mesh(np.array(jax.devices()[:2]), ("x",))
-        fn1, plan1 = compile_sharded_chain(p, mesh1, ("x", None, None),
-                                           local_backend="stream",
-                                           interpret=True)
-        check(fn1, plan1, "stream sharded (i)")
+        fn1, plan1 = compile_sharded_chain(p, mesh1, ("x", None, None))
+        check(fn1, plan1, "xla sharded (i)")

@@ -113,12 +113,10 @@ def test_default_wrt_skips_integer_inputs():
 
 class TestAdjointProgram:
     def test_matches_autodiff(self):
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        from stencilflow_tpu.backend.xla import compile_chain
+        from stencilflow_tpu.backend.xla import compile_chain, run_chain
         p = sft.parse_program(jacobi(3, 12, iterations=3), name="ap1")
         adj, cot = adjoint_program(p)
-        g_fast = run_chain_stream(adj, sft.load_input_arrays(adj),
-                                  interpret=True)["adj_a"]
+        g_fast = run_chain(adj, sft.load_input_arrays(adj))["adj_a"]
         fn = compile_chain(p)
         a = jnp.asarray(sft.load_input_arrays(p, seed=0)["a"])
         g_ad = np.asarray(jax.grad(
@@ -131,16 +129,14 @@ class TestAdjointProgram:
         import sys
         sys.path.insert(0, os.path.dirname(__file__))
         from test_fuzz import _affine_program
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        from stencilflow_tpu.backend.xla import compile_chain
+        from stencilflow_tpu.backend.xla import compile_chain, run_chain
         rng = np.random.default_rng(4000 + seed)
         p = sft.parse_program(_affine_program(rng, int(rng.integers(2, 4))),
                               name=f"ap{seed}")
         adj, cot = adjoint_program(p)
         out = p.outputs[0]
         ct = rng.random(tuple(p.dimensions)).astype(np.float32)
-        g_fast = run_chain_stream(adj, {cot[out]: ct},
-                                  interpret=True)["adj_a"]
+        g_fast = run_chain(adj, {cot[out]: ct})["adj_a"]
         fn = compile_chain(p)
         a = jnp.asarray(sft.load_input_arrays(p, seed=seed)["a"])
         g_ad = np.asarray(jax.grad(
@@ -154,8 +150,7 @@ class TestAdjointProgram:
         """Transpose of edge-clamp (copy) BCs: the OOB positions scatter
         their weight onto their own center, realized as boundary terms
         with 1-D OOB-indicator inputs (VERDICT r1 #9)."""
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        from stencilflow_tpu.backend.xla import compile_chain
+        from stencilflow_tpu.backend.xla import compile_chain, run_chain
         p = sft.parse_program(jacobi(nd, 10, iterations=iters,
                                      boundary="copy"),
                               name=f"cb{nd}{iters}")
@@ -164,7 +159,7 @@ class TestAdjointProgram:
         rng = np.random.default_rng(50)
         ct = rng.random(tuple(p.dimensions)).astype(np.float32)
         adj_in = {**sft.load_input_arrays(adj), cot[out]: ct}
-        g_fast = run_chain_stream(adj, adj_in, interpret=True)["adj_a"]
+        g_fast = run_chain(adj, adj_in)["adj_a"]
         fn = compile_chain(p)
         a = jnp.asarray(sft.load_input_arrays(p, seed=0)["a"])
         ct_raw = jnp.asarray(ct.reshape(tuple(p.raw_dimensions)))
@@ -176,8 +171,7 @@ class TestAdjointProgram:
     def test_copy_bc_diagonal_offsets(self):
         """Copy-BC transpose with multi-dim (diagonal) offsets: the OOB
         union factorizes through per-dim indicator inputs."""
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        from stencilflow_tpu.backend.xla import compile_chain
+        from stencilflow_tpu.backend.xla import compile_chain, run_chain
         spec = {
             "inputs": {"a": {"data": "random:-1,1",
                              "data_type": "float32"}},
@@ -199,7 +193,7 @@ class TestAdjointProgram:
         rng = np.random.default_rng(51)
         ct = rng.random((6, 10, 10)).astype(np.float32)
         adj_in = {**sft.load_input_arrays(adj), cot["y"]: ct}
-        g_fast = run_chain_stream(adj, adj_in, interpret=True)["adj_a"]
+        g_fast = run_chain(adj, adj_in)["adj_a"]
         fn = compile_chain(p)
         a = jnp.asarray(sft.load_input_arrays(p, seed=0)["a"])
         g_ad = np.asarray(jax.grad(
@@ -213,7 +207,7 @@ class TestAdjointProgram:
                               name="fvgcb")
         inputs = {k: jnp.asarray(v)
                   for k, v in sft.load_input_arrays(p, seed=1).items()}
-        vf, gf = fast_value_and_grad(p, interpret=True)(inputs)
+        vf, gf = fast_value_and_grad(p)(inputs)
         v2, g2 = sft.value_and_grad(p)(inputs)
         np.testing.assert_allclose(float(vf), float(v2), rtol=1e-5)
         np.testing.assert_allclose(np.asarray(gf["a"]),
@@ -230,8 +224,7 @@ class TestAdjointProgram:
         """A kernel whose output is neither consumed nor a program output
         has zero cotangent; adjoint_program must skip it (not emit a read
         of an undefined adj_<dead> field) and still match jax.grad."""
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        from stencilflow_tpu.backend.xla import compile_chain
+        from stencilflow_tpu.backend.xla import compile_chain, run_chain
         p = sft.parse_program({
             "inputs": {"a": {"data": "random:0,1",
                              "data_type": "float32"}},
@@ -255,8 +248,7 @@ class TestAdjointProgram:
                       "data_type": "float32"}}}, name="deadk")
         adj, cot = adjoint_program(p)
         assert "adj_dead" not in adj.kernels
-        g_fast = run_chain_stream(adj, sft.load_input_arrays(adj),
-                                  interpret=True)["adj_a"]
+        g_fast = run_chain(adj, sft.load_input_arrays(adj))["adj_a"]
         fn = compile_chain(p)
         a = jnp.asarray(sft.load_input_arrays(p, seed=0)["a"])
         g_ad = np.asarray(jax.grad(
@@ -265,7 +257,7 @@ class TestAdjointProgram:
                                    g_ad.squeeze(), rtol=1e-5, atol=1e-6)
 
     def test_fast_value_and_grad(self):
-        """Streaming fwd + elementwise cotangent + streaming adjoint ==
+        """Compiled fwd + elementwise cotangent + compiled adjoint chain ==
         value_and_grad for an affine chain and a custom loss."""
         from stencilflow_tpu.grad import fast_value_and_grad
         p = sft.parse_program(jacobi(3, 12, iterations=3), name="ap4")
@@ -278,8 +270,7 @@ class TestAdjointProgram:
 
         inputs = {k: jnp.asarray(v)
                   for k, v in sft.load_input_arrays(p, seed=6).items()}
-        vf, gf = fast_value_and_grad(p, loss=loss,
-                                     interpret=True)(inputs)
+        vf, gf = fast_value_and_grad(p, loss=loss)(inputs)
         vs, gs = sft.value_and_grad(p, loss=loss)(inputs)
         np.testing.assert_allclose(float(vf), float(vs), rtol=1e-5)
         np.testing.assert_allclose(np.asarray(gf["a"]),
@@ -316,8 +307,7 @@ class TestAdjointProgram:
     def test_multi_output_adjoint_with_consumed_output(self):
         """An output read by LATER kernels: its adjoint kernel sums the
         cotangent input AND the consumer terms."""
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        from stencilflow_tpu.backend.xla import compile_chain
+        from stencilflow_tpu.backend.xla import compile_chain, run_chain
         p = sft.parse_program({
             "inputs": {"a": {"data": "random:0,1",
                              "data_type": "float32"}},
@@ -337,7 +327,7 @@ class TestAdjointProgram:
         rng = np.random.default_rng(11)
         cts = {cot[o]: rng.random((6, 10, 10)).astype(np.float32)
                for o in p.outputs}
-        g_fast = run_chain_stream(adj, cts, interpret=True)["adj_a"]
+        g_fast = run_chain(adj, cts)["adj_a"]
         fn = compile_chain(p)
         a = jnp.asarray(sft.load_input_arrays(p, seed=0)["a"])
         g_ad = np.asarray(jax.grad(lambda x: sum(
@@ -349,18 +339,16 @@ class TestAdjointProgram:
     def test_adjoint_composes_with_sharding_and_fusion(self):
         """The adjoint IS a chain: it domain-decomposes over a mesh like
         any program, and transposing a temporally-fused chain gives the
-        N-step adjoint in one streaming kernel."""
+        N-step adjoint in one fused chain."""
         from jax.sharding import Mesh
         from stencilflow_tpu.parallel.domain import run_sharded_chain
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        from stencilflow_tpu.backend.xla import compile_chain
+        from stencilflow_tpu.backend.xla import compile_chain, run_chain
 
         # fused: adjoint of compose_iterations(p1, 4) == grad of 4 steps
         p1 = sft.parse_program(jacobi(3, 16, iterations=1), name="af1")
         p4 = sft.compose_iterations(p1, 4)
         adj, cot = adjoint_program(p4)
-        g_fast = run_chain_stream(adj, sft.load_input_arrays(adj),
-                                  interpret=True)[adj.outputs[0]]
+        g_fast = run_chain(adj, sft.load_input_arrays(adj))[adj.outputs[0]]
         fn = compile_chain(sft.parse_program(
             jacobi(3, 16, iterations=4), name="af4"))
         a = jnp.asarray(sft.load_input_arrays(p1, seed=0)["a"])
@@ -423,12 +411,11 @@ def test_traced_frontend_composes_with_adjoint_solve_iterate():
     np.testing.assert_allclose(g[6:10, 6:10], 1.0, rtol=1e-5)
 
     b = np.random.default_rng(0).random((16, 16)).astype(np.float32)
-    x, info = solve_cg(p, b, interpret=True, tol=1e-6)
+    x, info = solve_cg(p, b, tol=1e-6)
     y = np.asarray(sft.run_interpreter(p, {"x": np.asarray(x)})["y"])
     assert np.linalg.norm(y - b) / np.linalg.norm(b) < 1e-5
 
-    state = sft.iterate(p, {"x": b}, steps=4, feed={"x": "y"},
-                        interpret=True)
+    state = sft.iterate(p, {"x": b}, steps=4, feed={"x": "y"})
     assert np.isfinite(np.asarray(state["x"])).all()
 
 
@@ -439,13 +426,11 @@ def test_adjoint_of_vectorized_reference_fixture():
     path = "/root/reference/test/stencils/jacobi3d_32x32x32_8itr_4vec.json"
     if not os.path.exists(path):
         pytest.skip("reference fixtures unavailable")
-    from stencilflow_tpu.backend.stream import run_chain_stream
-    from stencilflow_tpu.backend.xla import compile_chain
+    from stencilflow_tpu.backend.xla import compile_chain, run_chain
     p = sft.parse_program(path)
     adj, _cot = adjoint_program(p)
     assert adj.vectorization == p.vectorization > 1
-    g = run_chain_stream(adj, sft.load_input_arrays(adj),
-                         interpret=True)[adj.outputs[0]]
+    g = run_chain(adj, sft.load_input_arrays(adj))[adj.outputs[0]]
     fn = compile_chain(p)
     a = jnp.asarray(sft.load_input_arrays(
         p, prefix=os.path.dirname(path), seed=0)["a"])
@@ -508,9 +493,8 @@ def test_fast_value_and_grad_host_chunks():
     def loss(outputs):
         return sum(jnp.sum(v * 0.5) for v in outputs.values())
 
-    f_dev = fast_value_and_grad(p, loss=loss, interpret=True)
-    f_oc = fast_value_and_grad(p, loss=loss, interpret=True,
-                               host_chunks=2)
+    f_dev = fast_value_and_grad(p, loss=loss)
+    f_oc = fast_value_and_grad(p, loss=loss, host_chunks=2)
     v1, g1 = f_dev({k: jnp.asarray(v) for k, v in inputs.items()})
     v2, g2 = f_oc(inputs)
     assert isinstance(g2["a"], np.ndarray)

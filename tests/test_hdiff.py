@@ -12,7 +12,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh
 
 import stencilflow_tpu as sft
-from stencilflow_tpu.backend.stream import compile_chain_stream
+from stencilflow_tpu.backend.xla import compile_chain
 from stencilflow_tpu.sim import simulate
 from stencilflow_tpu.synthesize import synthesize_stencil
 
@@ -47,7 +47,7 @@ def test_stream_matches_oracle(dims):
     p = _program(dims=dims)
     inputs = sft.load_input_arrays(p, seed=0)
     ref = _oracle(p, inputs)
-    fn = compile_chain_stream(p, interpret=True)
+    fn = compile_chain(p)
     out = fn({k: jnp.asarray(v) for k, v in inputs.items()})
     for k in ref:
         np.testing.assert_allclose(np.asarray(out[k]), ref[k],

@@ -37,8 +37,8 @@ class TestComposeIterations:
     def test_iterate_with_fuse(self):
         p1 = _one_step_program()
         inputs = sft.load_input_arrays(p1, seed=6)
-        plain = iterate(p1, inputs, steps=6, interpret=True, chunk=3)
-        fused = iterate(p1, inputs, steps=6, interpret=True, fuse=3)
+        plain = iterate(p1, inputs, steps=6, chunk=3)
+        fused = iterate(p1, inputs, steps=6, fuse=3)
         np.testing.assert_allclose(fused["a"], plain["a"], rtol=1e-5,
                                    atol=1e-7)
 
@@ -46,9 +46,9 @@ class TestComposeIterations:
         p1 = _one_step_program()
         inputs = sft.load_input_arrays(p1, seed=7)
         with pytest.raises(IterateError, match="multiple of"):
-            iterate(p1, inputs, steps=5, interpret=True, fuse=3)
+            iterate(p1, inputs, steps=5, fuse=3)
         with pytest.raises(IterateError, match="fuse must be"):
-            iterate(p1, inputs, steps=6, interpret=True, fuse=0)
+            iterate(p1, inputs, steps=6, fuse=0)
 
     def test_compose_prunes_dead_side_outputs(self):
         # a non-fed side output's intermediate clones are dead and pruned
@@ -79,7 +79,7 @@ class TestComposeIterations:
         # checkpoints are named in ORIGINAL step units regardless of fuse
         p1 = _one_step_program()
         inputs = sft.load_input_arrays(p1, seed=8)
-        iterate(p1, inputs, steps=8, interpret=True, fuse=2,
+        iterate(p1, inputs, steps=8, fuse=2,
                 checkpoint_every=4, checkpoint_dir=str(tmp_path))
         assert (tmp_path / "step_4.npz").exists()
         assert (tmp_path / "step_8.npz").exists()
@@ -94,7 +94,7 @@ class TestComposeIterations:
         got = np.asarray(sft.run_interpreter(fused, inputs)[
             fused.outputs[0]])
         state = iterate(p2, inputs, steps=3, feed={"a": "s1"},
-                        interpret=True, chunk=1)
+                        chunk=1)
         np.testing.assert_allclose(got, state["a"], rtol=1e-5, atol=1e-7)
 
 
@@ -105,14 +105,14 @@ class TestIterate:
         p4 = sft.parse_program(jacobi(2, 16, iterations=4), name="unroll4")
         inputs = sft.load_input_arrays(p1, seed=1)
         ref = np.asarray(sft.run_interpreter(p4, inputs)["s3"])
-        state = iterate(p1, inputs, steps=4, interpret=True, chunk=2)
+        state = iterate(p1, inputs, steps=4, chunk=2)
         np.testing.assert_allclose(state["a"], ref, rtol=1e-5, atol=1e-7)
 
     def test_checkpoint_and_resume(self, tmp_path):
         p1 = _one_step_program()
         inputs = sft.load_input_arrays(p1, seed=2)
         ckpt = str(tmp_path / "ck")
-        full = iterate(p1, inputs, steps=6, interpret=True, chunk=2,
+        full = iterate(p1, inputs, steps=6, chunk=2,
                        checkpoint_every=2, checkpoint_dir=ckpt)
         # checkpoints written at steps 2, 4, 6
         names = sorted(os.listdir(ckpt))
@@ -120,7 +120,7 @@ class TestIterate:
 
         # delete the last checkpoint; resume continues from step 4
         os.remove(os.path.join(ckpt, "step_6.npz"))
-        resumed = iterate(p1, inputs, steps=6, interpret=True, chunk=2,
+        resumed = iterate(p1, inputs, steps=6, chunk=2,
                           checkpoint_every=2, checkpoint_dir=ckpt)
         np.testing.assert_array_equal(full["a"], resumed["a"])
 
@@ -143,7 +143,7 @@ class TestIterate:
             ref = {k: np.asarray(out[o]) for k, o in feed.items()}
         for fuse in (1, 4):
             state = iterate(p, inputs, steps=8, feed=feed, fuse=fuse,
-                            interpret=True, chunk=2)
+                            chunk=2)
             for k in feed:
                 np.testing.assert_allclose(state[k], ref[k],
                                            rtol=1e-5, atol=1e-6,
@@ -169,7 +169,7 @@ class TestIterate:
             ref = {k: np.asarray(out[o]) for k, o in feed.items()}
         for fuse in (1, 4):
             state = iterate(p, inputs, steps=8, feed=feed, fuse=fuse,
-                            interpret=True, chunk=2)
+                            chunk=2)
             for k in feed:
                 np.testing.assert_allclose(state[k], ref[k],
                                            rtol=1e-5, atol=1e-6,
@@ -181,14 +181,14 @@ class TestIterate:
         p1 = _one_step_program()
         inputs = sft.load_input_arrays(p1, seed=7)
         ckpt = str(tmp_path / "ock")
-        full = iterate(p1, inputs, steps=6, interpret=True, chunk=2,
+        full = iterate(p1, inputs, steps=6, chunk=2,
                        checkpoint_every=2, checkpoint_dir=ckpt,
                        checkpoint_format="orbax")
         import shutil
         assert sorted(int(d) for d in os.listdir(ckpt)
                       if d.isdigit()) == [2, 4, 6]
         shutil.rmtree(os.path.join(ckpt, "6"))
-        resumed = iterate(p1, inputs, steps=6, interpret=True, chunk=2,
+        resumed = iterate(p1, inputs, steps=6, chunk=2,
                           checkpoint_every=2, checkpoint_dir=ckpt,
                           checkpoint_format="orbax")
         np.testing.assert_array_equal(full["a"], resumed["a"])
@@ -219,12 +219,12 @@ class TestIterate:
         p1 = _one_step_program()
         inputs = sft.load_input_arrays(p1, seed=3)
         ckpt = str(tmp_path / "ck2")
-        iterate(p1, inputs, steps=4, interpret=True,
+        iterate(p1, inputs, steps=4, 
                 checkpoint_every=4, checkpoint_dir=ckpt)
         junk = {"a": np.zeros_like(inputs["a"])}
-        resumed = iterate(p1, junk, steps=4, interpret=True,
+        resumed = iterate(p1, junk, steps=4, 
                           checkpoint_every=4, checkpoint_dir=ckpt)
-        expect = iterate(p1, inputs, steps=4, interpret=True)
+        expect = iterate(p1, inputs, steps=4)
         np.testing.assert_array_equal(resumed["a"], expect["a"])
 
     def test_multichip_iterate(self):
@@ -253,7 +253,7 @@ class TestIterate:
                 "data_type": "float32"}},
         }, name="amb")
         with pytest.raises(IterateError):
-            iterate(p, sft.load_input_arrays(p), steps=1, interpret=True)
+            iterate(p, sft.load_input_arrays(p), steps=1)
 
     def test_wave_time_reversal(self):
         """Leapfrog wave stepping (two time levels via multi-feed) is
@@ -270,10 +270,10 @@ class TestIterate:
         inputs = sft.load_input_arrays(p)
         p0 = np.asarray(inputs["p"])
         fwd = iterate(p, inputs, steps=24, feed=wave.FEED, fuse=4,
-                      interpret=True, chunk=2)
+                      chunk=2)
         rec = iterate(p, {"p": np.asarray(fwd["pm"]),
                           "pm": np.asarray(fwd["p"])},
-                      steps=23, feed=wave.FEED, interpret=True, chunk=4)
+                      steps=23, feed=wave.FEED, chunk=4)
         np.testing.assert_allclose(np.asarray(rec["p"]), p0,
                                    rtol=0, atol=1e-5)
 
@@ -295,11 +295,3 @@ def test_chunk_must_be_positive():
     inputs = sft.load_input_arrays(p1, seed=0)
     with pytest.raises(IterateError, match="chunk"):
         iterate(p1, inputs, steps=4, chunk=0)
-
-
-def test_host_chunks_rejects_unsupported_backend():
-    from stencilflow_tpu.iterate import IterateError
-    p1 = sft.parse_program(jacobi(3, 8, iterations=1), name="hcb")
-    inputs = sft.load_input_arrays(p1, seed=0)
-    with pytest.raises(IterateError, match="out-of-core"):
-        iterate(p1, inputs, steps=2, host_chunks=2, backend="pallas")

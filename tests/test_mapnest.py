@@ -283,7 +283,7 @@ def test_cli_import_symbols_flag(tmp_path):
 
 def test_mapnest_through_cli_import(tmp_path):
     """import-sdfg canonicalizes the map-nest fixture to dialect JSON
-    that runs on the streaming backend."""
+    that runs on the fused-XLA backend."""
     out_json = tmp_path / "hdiff_mapnest.json"
     r = subprocess.run(
         [sys.executable, "-m", "stencilflow_tpu.cli", "import-sdfg",
@@ -293,10 +293,10 @@ def test_mapnest_through_cli_import(tmp_path):
         env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert r.returncode == 0, r.stderr
     p = sft.parse_program(str(out_json))
-    from stencilflow_tpu.backend.stream import run_chain_stream
+    from stencilflow_tpu.backend.xla import run_chain
     ins = sft.load_input_arrays(p, seed=0)
     ref = sft.run_interpreter(p, ins)
-    got = run_chain_stream(p, ins, interpret=True)
+    got = run_chain(p, ins)
     np.testing.assert_allclose(
         np.asarray(got["out_field"]), np.asarray(ref["out_field"]),
         rtol=3e-6, atol=1e-7)

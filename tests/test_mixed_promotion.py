@@ -4,7 +4,7 @@ The framework's defined semantics: at any binary site (arith, compare,
 select branches, min/max) a STRONG integer/bool operand meeting a STRONG
 floating operand converts to THAT float dtype — JAX's no-f64 lattice.
 numpy alone would widen int32/int64 x float32 to float64, a compute
-dtype the TPU backends cannot express, permanently splitting the
+dtype the JAX engines do not compute with x64 off, permanently splitting the
 engines.  Implemented in interpreter._match_mixed (oracle), machine._mx
 (Python machine), native._res_ty (C++ emitter), and tile_eval's walker
 (explicit casts — jnp itself only follows this lattice with x64 off).
@@ -41,7 +41,7 @@ def _spec(expr_s, out_dt="float64", extra=None):
 
 def _engines(p, inputs):
     """(label, outputs_dict) for every engine that accepts the program."""
-    from stencilflow_tpu.backend.stream import run_chain_stream
+    from stencilflow_tpu.backend.xla import run_chain
     from stencilflow_tpu.backend.xla import run_chain
     from stencilflow_tpu.sim import simulate
     outs = []
@@ -59,9 +59,9 @@ def _engines(p, inputs):
         pass   # g++ unavailable: Python machine already covers semantics
     outs.append(("xla", {k: np.asarray(v)
                          for k, v in run_chain(p, inputs).items()}))
-    outs.append(("stream", {k: np.asarray(v) for k, v in
-                            run_chain_stream(p, inputs,
-                                             interpret=True).items()}))
+    outs.append(("xla-interp", {k: np.asarray(v) for k, v in
+                                run_chain(p, inputs,
+                                          strategy="interpreter").items()}))
     return outs
 
 
@@ -165,7 +165,7 @@ class TestMixedPromotionSpec:
             if label in engines:
                 np.testing.assert_array_equal(engines[label]["q"], ref,
                                               err_msg=label)
-        for label in ("xla", "stream"):
+        for label in ("xla", "xla-interp"):
             d = np.abs(engines[label]["q"].astype(np.int64)
                        - ref.astype(np.int64))
             assert d.max() <= 4, (label, d.max())   # FMA wiggle only

@@ -2,7 +2,7 @@
 
 Spawns two real OS processes, each with its own set of virtual CPU
 devices, wired together with ``jax.distributed.initialize`` through the
-CLI's ``run-distributed --coordinator`` path — the TPU-native analogue of
+CLI's ``run-distributed --coordinator`` path — the analogue of
 the reference's 2-rank MPI harness
 (/root/reference/test/test_distributed_program.sh:37-124,
 bin/run_distributed_program.py:98-299).  Each process runs the same SPMD

@@ -2,10 +2,8 @@
 chain's cumulative halo stream through one origin-parameterized kernel;
 results must match the whole-domain oracle exactly.
 
-The chunk kernel reuses the per-block lowering of domain decomposition
-(parallel/domain.py:plan_local_stream), so these tests cover the stream
-(interpret) and fused-XLA chunk bodies, memmapped inputs/outputs, DAG
-programs with lower-dimensional inputs, and the error surface.
+These tests cover the fused-XLA chunk body, memmapped inputs/outputs,
+DAG programs with lower-dimensional inputs, and the error surface.
 """
 import json
 import os
@@ -41,25 +39,21 @@ class TestChunkedMatchesOracle:
         p = sft.parse_program(jacobi(3, 16, iterations=2), name="ocs")
         inputs = sft.load_input_arrays(p, seed=2)
         ref = _oracle(p, inputs)
-        got = run_chunked(p, inputs, chunks, backend="stream",
-                          interpret=True)
+        got = run_chunked(p, inputs, chunks)
         for o in p.outputs:
             np.testing.assert_allclose(got[o], ref[o], rtol=2e-5,
                                        atol=1e-6)
 
     @pytest.mark.parametrize("boundary", ["constant", "shrink"])
     def test_stream_body_shift_fill_k256(self, boundary):
-        """At K >= 256 the chunk body uses shift-in-fill reads in both j
-        and k (the chunk spans the whole j/k domain at origin 0); the
-        i-OOB fill at chunk seams must still match the oracle."""
-        from stencilflow_tpu.backend.stream import compile_local_stream
+        """A wide plane (K = 256) chunked along i: the i-OOB fill at
+        chunk seams must match the oracle."""
         spec = synthesize_stencil(num_stages=2, dimensions=(8, 8, 256),
                                   shape="diffusion", boundary=boundary)
         p = sft.parse_program(spec, name=f"ocshift_{boundary}")
         inputs = sft.load_input_arrays(p, seed=7)
         ref = _oracle(p, inputs)
-        got = run_chunked(p, inputs, 2, backend="stream", interpret=True)
-        assert compile_local_stream.last_config["fast"] == "shift"
+        got = run_chunked(p, inputs, 2)
         for o in p.outputs:
             np.testing.assert_allclose(got[o], ref[o], rtol=2e-5,
                                        atol=1e-6)
@@ -204,7 +198,7 @@ class TestIterateHostChunks:
 
 
 def test_report_out_of_core_advisory():
-    """report flags domains whose in-core footprint exceeds HBM and
+    """report flags domains whose in-core footprint exceeds device memory and
     suggests a host-chunk count; small domains report 1."""
     from stencilflow_tpu.report import Report
     small = sft.parse_program(jacobi(3, 16, iterations=2), name="rsm")

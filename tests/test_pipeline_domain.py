@@ -26,7 +26,7 @@ def _run(program, inputs, mesh_shape, axes, domain_axes, **kw):
     mesh = Mesh(devs.reshape(mesh_shape), axes)
     fn, _plan = compile_pipeline_split(program, mesh, axes[0],
                                        domain_axes=domain_axes,
-                                       interpret=True, **kw)
+                                       **kw)
     specs = compile_pipeline_split.last_config["in_specs"]
     dev_in = {}
     for n, v in inputs.items():
@@ -90,17 +90,11 @@ class TestPipelineDomainComposition:
             compile_pipeline_split(
                 sft.parse_program(jacobi(3, 18, iterations=4),
                                   name="pdc_nd"),
-                mesh, "p", domain_axes={1: "x"}, interpret=True)
+                mesh, "p", domain_axes={1: "x"})
         with pytest.raises(ValueError, match="pipeline axis"):
-            compile_pipeline_split(p, mesh, "p", domain_axes={1: "p"},
-                                   interpret=True)
+            compile_pipeline_split(p, mesh, "p", domain_axes={1: "p"})
         with pytest.raises(ValueError, match="1 .j. or 2"):
-            compile_pipeline_split(p, mesh, "p", domain_axes={0: "x"},
-                                   interpret=True)
+            compile_pipeline_split(p, mesh, "p", domain_axes={0: "x"})
         with pytest.raises(ValueError, match="sharded"):
             compile_pipeline_split(p, mesh, "p", domain_axes={1: "x"},
-                                   io="replicated", interpret=True)
-        with pytest.raises(ValueError, match="tile evaluator"):
-            compile_pipeline_split(p, mesh, "p", domain_axes={1: "x"},
-                                   local_backend="stream",
-                                   interpret=True)
+                                   io="replicated")

@@ -60,19 +60,15 @@ def test_reference_program(path):
         got = prune_halo(out[o], program.raw_dimensions, halo)
         assert arrays_are_equal(exp, got), f"XLA mismatch on {o}"
 
-    # streaming-backend cross-check (interpret mode) for small domains
+    # interpreter-strategy cross-check for small domains
     if program.total_elements <= 4096:
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        try:
-            got_s = run_chain_stream(program, inputs, interpret=True)
-        except ValueError:
-            got_s = None   # documented lowering limit (e.g. i-spanning
-            #                lower-dim inputs); auto falls back to pallas/xla
-        for o in (program.outputs if got_s is not None else []):
+        got_s = run_chain(program, inputs, strategy="interpreter")
+        for o in program.outputs:
             exp = prune_halo(np.asarray(ref[o]), program.raw_dimensions,
                              halo)
             got = prune_halo(got_s[o], program.raw_dimensions, halo)
-            assert arrays_are_equal(exp, got), f"stream mismatch on {o}"
+            assert arrays_are_equal(exp, got), \
+                f"interpreter-strategy mismatch on {o}"
 
     # simulator cross-check for small domains (cycle loop cost)
     if program.total_elements <= 40000:
@@ -90,10 +86,9 @@ def test_vectorization_analysis_matches_reference_model():
     latency = ceil(tree_latency / W) (compute_graph.py:461-474), internal
     buffer extents +W-1 in the fastest dim (compute_graph.py:146-161),
     runtime lower bound = (N + critical_path) / W
-    (kernel_chain_graph.py:770-774) — while the TPU LOWERING is
-    W-neutral by design: the streamed plane IS the vector (8x128 VPU
-    lanes), so W changes no generated code (measured neutral on chip,
-    see RESULTS.md)."""
+    (kernel_chain_graph.py:770-774) — while the fused-XLA lowering is
+    W-neutral by design: the whole array IS the vector, so W changes no
+    generated code."""
     import copy
     import json
     import math
@@ -130,12 +125,11 @@ def test_vectorization_analysis_matches_reference_model():
     assert an_vec.runtime_lower_bound() == \
         (N + an_vec.critical_path_cycles) // W
 
-    # and the TPU lowering is W-neutral: identical bits from the
-    # streaming backend with and without W
-    from stencilflow_tpu.backend.stream import run_chain_stream
+    # and the lowering is W-neutral: identical bits with and without W
+    from stencilflow_tpu.backend.xla import run_chain
     inputs = load_input_arrays(p_vec, seed=0)
-    out_vec = run_chain_stream(p_vec, inputs, interpret=True)
-    out_one = run_chain_stream(p_one, inputs, interpret=True)
+    out_vec = run_chain(p_vec, inputs)
+    out_one = run_chain(p_one, inputs)
     np.testing.assert_array_equal(np.asarray(out_vec["b7"]),
                                   np.asarray(out_one["b7"]))
 

@@ -146,11 +146,11 @@ def test_cli_import_sdfg_round_trip(tmp_path):
     assert r.returncode == 0, r.stderr
     p = sft.parse_program(str(out_json))
     assert list(p.kernels) == ["lap", "b__1", "b"]
-    # imported dialect runs on the streaming backend
-    from stencilflow_tpu.backend.stream import run_chain_stream
+    # imported dialect runs on the fused-XLA backend
+    from stencilflow_tpu.backend.xla import run_chain
     ins = sft.load_input_arrays(p, seed=0)
     ref = sft.run_interpreter(p, ins)
-    got = run_chain_stream(p, ins, interpret=True)
+    got = run_chain(p, ins)
     np.testing.assert_allclose(np.asarray(got["b"]),
                                np.asarray(ref["b"]), rtol=3e-6,
                                atol=1e-7)
@@ -293,7 +293,7 @@ def test_hdiff_fixture_import_vs_oracle():
 
 def test_hdiff_fixture_cli_and_backends(tmp_path):
     """cli import-sdfg on the fixture -> dialect JSON -> oracle-exact
-    runs on the stream backend and the CLI driver."""
+    runs on the fused-XLA backend and the CLI driver."""
     out_json = tmp_path / "hdiff.json"
     r = subprocess.run(
         [sys.executable, "-m", "stencilflow_tpu.cli", "import-sdfg",
@@ -306,8 +306,8 @@ def test_hdiff_fixture_cli_and_backends(tmp_path):
     inputs = sft.load_input_arrays(p, seed=1)
     ref = np.asarray(
         sft.run_interpreter(p, inputs)["out_field"], np.float64)
-    from stencilflow_tpu.backend.stream import run_chain_stream
-    got = run_chain_stream(p, inputs, interpret=True)["out_field"]
+    from stencilflow_tpu.backend.xla import run_chain
+    got = run_chain(p, inputs)["out_field"]
     np.testing.assert_allclose(got, ref, rtol=3e-5, atol=1e-6)
 
 

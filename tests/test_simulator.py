@@ -480,11 +480,10 @@ class TestEngineParityEdgeCases:
     def test_weak_const_select_materializes_strong(self):
         """Float consts in a NON-floating kernel pin to float32 — the
         framework's defined semantics (numpy would materialize a weak
-        const strong float64 in np.where, which TPU compute cannot
-        express).  All engines, including the jnp backends, must agree
+        const strong float64 in np.where, which the JAX engines do not
+        compute with x64 off).  All engines, including the jnp backends, must agree
         on this program (review find: the select's constants)."""
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        from stencilflow_tpu.backend.xla import compile_chain
+        from stencilflow_tpu.backend.xla import compile_chain, run_chain
         spec = {
             "inputs": {"f": {"data": "random:0,1",
                              "data_type": "float32"}},
@@ -504,23 +503,11 @@ class TestEngineParityEdgeCases:
             got = np.asarray(compile_chain(p, strategy=strat)(inputs)["s"])
             np.testing.assert_array_equal(got, ref,
                                           err_msg=f"xla:{strat}")
-        st = np.asarray(run_chain_stream(p, inputs, interpret=True)["s"])
-        np.testing.assert_array_equal(st, ref, err_msg="stream")
 
-    def test_bool_i_history_gated_off_mosaic(self):
-        """A bool field read at a nonzero i-offset crashes the Mosaic
-        compiler when the i1 history is SHIFTED (measured on v5e).
-        overlap/pallas reject it with a clean ValueError; panel/group
-        (round 5) and stream (round 5, VERDICT r4 #5 closure) are IN
-        scope: 0/1 int32 wire, `!= 0` at read exit — compiled +
-        bit-exact on chip, see scripts/bool_ihist_onchip.py; interpret
-        mode keeps working."""
-        from stencilflow_tpu.backend.group import compile_chain_group
-        from stencilflow_tpu.backend.overlap import compile_chain_overlap
-        from stencilflow_tpu.backend.pallas import compile_chain_pallas
-        from stencilflow_tpu.backend.panel import compile_chain_panel
-        from stencilflow_tpu.backend.stream import (compile_chain_stream,
-                                                    run_chain_stream)
+    def test_bool_i_history_matches_oracle(self):
+        """A bool field read at a nonzero i-offset (bool history along
+        the outermost axis), through both fused-XLA strategies."""
+        from stencilflow_tpu.backend.xla import run_chain
         spec = {
             "inputs": {"a": {"data": "random:-1,1",
                              "data_type": "float32"}},
@@ -536,20 +523,14 @@ class TestEngineParityEdgeCases:
                       {"m": {"type": "constant", "value": 0},
                        "a": {"type": "constant", "value": 0.0}},
                       "data_type": "float32"}}}
-        p = sft.parse_program(spec, name="boolhistgate")
-        for compiler in (compile_chain_overlap, compile_chain_pallas):
-            with pytest.raises(ValueError, match="bool.*i-"):
-                compiler(p, interpret=False)
-        # panel/group/stream BUILD for the compiled target (int32 wire)
-        compile_chain_panel(p, interpret=False)
-        compile_chain_group(p, interpret=False, group=2)
-        compile_chain_stream(p, interpret=False)
+        p = sft.parse_program(spec, name="boolhist")
         inputs = sft.load_input_arrays(p, seed=0)
-        got = run_chain_stream(p, inputs, interpret=True)["s"]
-        np.testing.assert_allclose(
-            np.asarray(got),
-            np.asarray(sft.run_interpreter(p, inputs)["s"]),
-            rtol=2e-5, atol=1e-6)
+        for strategy in ("tile", "interpreter"):
+            got = run_chain(p, inputs, strategy=strategy)["s"]
+            np.testing.assert_allclose(
+                np.asarray(got),
+                np.asarray(sft.run_interpreter(p, inputs)["s"]),
+                rtol=2e-5, atol=1e-6, err_msg=strategy)
 
     def test_boolop_ref_to_comparison_temp_stays_native(self):
         """A uniform float kernel using a bool-valued statement temp as
@@ -622,8 +603,7 @@ class TestEngineParityEdgeCases:
         every jnp path (tile_eval/fast_tile/jnp interpreter) so all
         backends match the oracle (found by end-to-end verification)."""
         import warnings
-        from stencilflow_tpu.backend.stream import run_chain_stream
-        from stencilflow_tpu.backend.xla import compile_chain
+        from stencilflow_tpu.backend.xla import compile_chain, run_chain
         spec = {
             "inputs": {"f": {"data": "random:0,9", "data_type": "int32"},
                        "b": {"data": "random:0,3",
@@ -659,8 +639,6 @@ class TestEngineParityEdgeCases:
             got = np.asarray(compile_chain(p, strategy=strat)(inputs)["s"])
             np.testing.assert_array_equal(got, ref,
                                           err_msg=f"xla:{strat}")
-        st = np.asarray(run_chain_stream(p, inputs, interpret=True)["s"])
-        np.testing.assert_array_equal(st, ref, err_msg="stream")
 
     def test_int64_kernel_native(self):
         """int64 kernels run natively (typed long long FIFO transport —

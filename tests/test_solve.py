@@ -56,7 +56,7 @@ def test_cg_solves_the_program_equation(bc_value, source):
     fold into the affine offset and move to the right-hand side."""
     p = _implicit_program(bc_value, source)
     b = np.random.default_rng(0).random((N, N)).astype(np.float32)
-    x, info = solve_cg(p, b, interpret=True, tol=1e-6)
+    x, info = solve_cg(p, b, tol=1e-6)
     assert info["iterations"] < 100
     assert info["residual"] < 1e-5
     # the program's own evaluation of x reproduces rhs
@@ -79,7 +79,7 @@ def test_residual_normalized_by_original_rhs():
     where |rhs - offset| can differ from |rhs| by a large factor."""
     p = _implicit_program(bc_value=2.0, source=True)
     rhs = np.full((N, N), 5.0, np.float32)
-    x, info = solve_cg(p, rhs, interpret=True, tol=1e-8, maxiter=500)
+    x, info = solve_cg(p, rhs, tol=1e-8, maxiter=500)
     inputs = {**sft.load_input_arrays(p), "x": np.asarray(x)}
     y = np.asarray(sft.run_interpreter(p, inputs)["y"])
     true_rel = np.linalg.norm(y - rhs) / np.linalg.norm(rhs)
@@ -97,7 +97,7 @@ def test_cgnr_nonsymmetric():
                 "x": {"type": "constant", "value": 0.0}},
             "data_type": "float32"}}}, name="upwind")
     b = np.random.default_rng(1).random((N, N)).astype(np.float32)
-    x, info = solve_cgnr(p, b, interpret=True, tol=1e-6, maxiter=3000)
+    x, info = solve_cgnr(p, b, tol=1e-6, maxiter=3000)
     assert info["residual"] < 1e-4   # TRUE residual |Ax-b|/|b|
     A = np.eye(N * N, dtype=np.float32) * 0.6
     for j, k in itertools.product(range(N), range(N)):
@@ -112,7 +112,7 @@ def test_make_solver_reuse_time_stepping():
     """One compiled solver drives many implicit time steps; diffusion
     with zero BCs decays monotonically."""
     p = _implicit_program()
-    solver = make_solver(p, interpret=True, tol=1e-6)
+    solver = make_solver(p, tol=1e-6)
     state = np.random.default_rng(2).random((N, N)).astype(np.float32)
     norms = [float(np.linalg.norm(state))]
     for _ in range(3):
@@ -161,8 +161,8 @@ class TestOutOfCoreSolver:
         p = self._impl3d()
         rng = np.random.default_rng(7)
         rhs = rng.random((8, 8, 8)).astype(np.float32)
-        x_dev, info_dev = make_solver(p, interpret=True, tol=1e-6)(rhs)
-        x_oc, info_oc = make_solver(p, interpret=True, tol=1e-6,
+        x_dev, info_dev = make_solver(p, tol=1e-6)(rhs)
+        x_oc, info_oc = make_solver(p, tol=1e-6,
                                     host_chunks=2)(rhs)
         assert isinstance(x_oc, np.ndarray)
         assert info_oc["residual"] <= 2e-5
@@ -179,7 +179,7 @@ class TestOutOfCoreSolver:
         p = self._impl3d(nonsym=True)
         rng = np.random.default_rng(8)
         rhs = rng.random((8, 8, 8)).astype(np.float32)
-        x, info = make_solver(p, method="cgnr", interpret=True,
+        x, info = make_solver(p, method="cgnr", 
                               tol=1e-8, maxiter=4000, host_chunks=2)(rhs)
         assert info["residual"] <= 1e-4
         got = sft.run_interpreter(p, {"x": x})
@@ -211,7 +211,7 @@ def test_cli_solve(tmp_path):
     path.write_text(json.dumps(prog))
     out = subprocess.run(
         [sys.executable, "-m", "stencilflow_tpu.cli", "solve", str(path),
-         "--rhs", "random:0,1", "--emulation", "--host-chunks", "2",
+         "--rhs", "random:0,1", "--host-chunks", "2",
          "-o", str(tmp_path / "x.dat")],
         capture_output=True, text=True, cwd=repo, env=env)
     assert out.returncode == 0, out.stderr
